@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+``kernel_sources()`` lists every CUDA source the port builds, so a caller
+can build them all at once (``_build.compile_libraries``).
+"""
+from pathlib import Path
+from typing import List
+
+__all__ = ["kernel_sources"]
+
+
+def kernel_sources() -> List[Path]:
+    from repro_torch.kernels.coded_reduce.ops import SOURCE as coded_reduce
+    return [coded_reduce]

@@ -1,0 +1,41 @@
+"""Import hygiene of the port: importing every module of ``repro_torch``,
+and ``chip_smoke.py``, loads neither ``jax`` nor the JAX package
+``repro``."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE,
+                          str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    for mod in ("repro_torch.kernels.coded_reduce.ops",
+                "repro_torch.core.lyapunov.scheduler",
+                "repro_torch.sim.cluster", "repro_torch.train.coded_trainer",
+                "repro_torch.models.mlp", "repro_torch.optim.optimizers",
+                "repro_torch.data.pipeline"):
+        assert mod in got["imported"]
