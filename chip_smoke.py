@@ -11,27 +11,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device  -- a CUDA card must be present; prints its name and power limit;
 2. build   -- compiles every CUDA source of the port with nvcc, one process
               per source, all started together;
-3. kernels -- each kernel against its plain PyTorch version on the card, on
-              the shapes of the JAX package's kernel tests and the slice's
-              own payload, with those tests' tolerances;
-4. slice   -- the main path: ``CodedTrainer`` with the paper's MLP
+3. kernels -- each kernel against its plain PyTorch version on the card:
+              coded_reduce on the shapes of the JAX package's kernel tests
+              and on every payload shape of both paths; flash attention,
+              forward and backward, on the reference's kernel-test cases,
+              a GQA case, ragged sequences and the transformer path's
+              shape, each with its stated tolerance;
+4. mlp     -- the first path: ``CodedTrainer`` with the paper's MLP
               (784, 256, 128, 10) on ``bursty-stragglers``, 10,000 examples
-              per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card.
-              Launch counts are zeroed just before and read just after; every
-              decoded epoch must equal the full-batch gradient and every
-              kernel of the path must have launched.  The same trainers then
-              run on the CPU: the co-simulated outcomes must be equal and the
-              losses agree within rtol 1e-3;
-5. times   -- each kernel, its plain version and one library call, timed
+              per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card,
+              then the same on the CPU (equal co-simulated outcomes, losses
+              within rtol 1e-3);
+5. lm      -- the second path: ``CodedTrainer`` with stablelm-1.6b at full
+              width cut to 4 layers (D = 616,581,120), one 4,096-token
+              sequence per partition, AdamW(1e-3), 4 schemes x 2 epochs.
+              Every decoded gradient must equal the full-batch gradient,
+              every failed decode must be a no-op step, and the launch
+              counts must be what the path implies;
+6. tiny    -- ``repro_torch.train.e2e`` at its TINY config on the card and
+              on the CPU: equal decode outcomes and simulated times, losses
+              within rtol 1e-3, and the reference's speedups;
+7. times   -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
-              and the per-epoch phase split of the main path.
+              and the per-epoch phase split of both paths.
 
-The line before the last holds one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each path and read just after it.
+The line before the last holds one JSON object with every kernel's
+numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,14 +56,22 @@ sys.path.insert(0, str(ROOT / "src"))
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
-DIMS = (784, 256, 128, 10)
 SCENARIO = "bursty-stragglers"
 SCHEMES = ("two-stage", "cyclic", "fractional", "uncoded")
-EXAMPLES_PER_PARTITION = 10_000
-EPOCHS = 3
 PHASES = ("shard_grads", "cosim", "encode", "decode_reduce",
           "optimizer_step")
+# the MLP path
+DIMS = (784, 256, 128, 10)
+EXAMPLES_PER_PARTITION = 10_000
+EPOCHS = 3
+# the transformer path: stablelm-1.6b, full width, depth cut to 4 layers
+LM_LAYERS = 4
+LM_SEQ = 4096
+LM_EPOCHS = 2
+#: the attention shape of the transformer path: (B, S, KV, G, D)
+FA_PATH = (1, LM_SEQ, 32, 1, 64)
 
 
 def log(msg: str) -> None:
@@ -58,17 +79,47 @@ def log(msg: str) -> None:
 
 
 def check_close(name, got, want, rtol, atol) -> float:
-    """Raise unless ``got`` is within ``atol + rtol·|want|`` of ``want``;
-    return the largest absolute error."""
+    """Raise unless ``got`` is within ``atol + rtol·|want|`` of ``want``
+    and finite; return the largest absolute error.  Works in slices, so a
+    comparison of two 2.5 GB vectors needs a few hundred MB more."""
     import torch
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
-    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+    got, want = got.reshape(-1), want.reshape(-1)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)}")
+    n_bad, worst, step = 0, 0.0, 1 << 26
+    for i in range(0, got.numel(), step):
+        g, w = got[i:i + step].float(), want[i:i + step].float()
+        err = (g - w).abs()
+        n_bad += int((err > atol + rtol * w.abs()).sum()) + \
+            int((~torch.isfinite(g)).sum())
+        worst = max(worst, float(err.max()))
+    if n_bad:
         raise AssertionError(
-            f"{name}: {int(bad.sum())} of {got.numel()} entries outside "
-            f"rtol={rtol} atol={atol}; max abs err {float(err.max()):.3e}")
-    return float(err.max())
+            f"{name}: {n_bad} of {got.numel()} entries outside rtol={rtol} "
+            f"atol={atol} or not finite; max abs err {worst:.3e}")
+    return worst
+
+
+def set_counts(counts: dict) -> None:
+    from repro_torch.kernels.coded_reduce import coded_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
+    coded_reduce.launches = counts["coded_reduce"]
+    flash_attention.fwd_launches = counts["flash_attention_fwd"]
+    flash_attention.bwd_launches = counts["flash_attention_bwd"]
+
+
+def reset_counts() -> None:
+    set_counts({"coded_reduce": 0, "flash_attention_fwd": 0,
+                "flash_attention_bwd": 0})
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.coded_reduce import coded_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"coded_reduce": coded_reduce.launches,
+            "flash_attention_fwd": flash_attention.fwd_launches,
+            "flash_attention_bwd": flash_attention.bwd_launches}
 
 
 # --------------------------------------------------------------------- #
@@ -106,13 +157,33 @@ def build_phase():
 # 3. kernels against their plain versions
 # --------------------------------------------------------------------- #
 def _uploads(seed, n_slots, D, dtype, scale=1.0):
+    """Uploads and weights drawn on the host with numpy (small shapes) or
+    on the card from a seeded generator (the transformer's payload)."""
     import numpy as np
     import torch
+    if n_slots * D > 1 << 27:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        g = torch.randn((n_slots, D), generator=gen, device="cuda")
+        w = torch.randn((n_slots,), generator=gen, device="cuda")
+        return g.mul_(scale).to(dtype), w
     rng = np.random.default_rng(seed)
     g = (rng.standard_normal((n_slots, D)) * scale).astype(np.float32)
     w = rng.standard_normal(n_slots).astype(np.float32)
     return (torch.from_numpy(g).to("cuda", dtype),
             torch.from_numpy(w).to("cuda"))
+
+
+def lm_config():
+    from repro_torch.configs.stablelm_1_6b import FULL
+    return dataclasses.replace(FULL, n_layers=LM_LAYERS)
+
+
+def lm_payload() -> int:
+    """D of the transformer path, from the shapes alone."""
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.models.transformer import model_specs
+    return sum(math.prod(s.shape) for s in spec_leaves(
+        model_specs(lm_config())))
 
 
 def kernel_phase() -> dict:
@@ -166,15 +237,94 @@ def kernel_phase() -> dict:
         case(f"CRS(6,2) dead={dead}", coded[live].cuda(),
              torch.tensor(a[live], dtype=torch.float32, device="cuda"),
              1e-3, 1e-3, want=want)
-    for n_slots in range(1, 7):     # every upload count the MLP path gives
-        for D in (98_624, 235_146):
+    # every upload count both paths give, at both payloads
+    for D in (98_624, 235_146, lm_payload()):
+        for n_slots in range(1, 7):
             g, w = _uploads(12, n_slots, D, torch.float32, scale=0.1)
             case(f"({n_slots},{D}) payload", g, w, 1e-4, 1e-4)
+            del g, w
+    torch.cuda.empty_cache()
     return errs
 
 
+def _fa_inputs(seed, shape_q, dtype):
+    import numpy as np
+    import torch
+    B, S, KV, G, D = shape_q
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+    return (draw(shape_q), draw((B, S, KV, D)), draw((B, S, KV, D)),
+            draw(shape_q))
+
+
+#: (forward, gradient) tolerances: float32 sums in another order than the
+#: plain version's (the reference's kernel-test bound forward; gradients
+#: sum up to S terms more), bfloat16 outputs are roundings of float32
+#: values that differ in their last float32 bits (the reference's bf16
+#: kernel-test bound)
+FA_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
+          "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+
+
+def flash_kernel_phase() -> dict:
+    """Flash attention, forward and backward, kernel vs plain version;
+    returns the largest errors at the path's shape, by direction."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+
+    path_errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def case(tag, shape_q, dtype, causal, window, chunk=64):
+        q, k, v, do = _fa_inputs(0, shape_q, dtype)
+        kw = dict(causal=causal, window=window, q_chunk=chunk,
+                  kv_chunk=chunk)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
+        grads_r = flash_attention_bwd_ref(q, k, v, out_r, lse_r, do, **kw)
+        name = str(dtype)[6:]
+        (fr, fa), (gr, ga) = FA_TOL[name]
+        e_fwd = max(check_close(f"{tag} out", out, out_r, fr, fa),
+                    check_close(f"{tag} lse", lse, lse_r, 1e-5, 1e-5))
+        e_bwd = 0.0
+        for n, g, r in zip(("dq", "dk", "dv"), grads, grads_r):
+            if g.dtype != q.dtype or g.shape != r.shape:
+                raise AssertionError(f"{tag} {n}: {g.dtype} {g.shape}")
+            e_bwd = max(e_bwd, check_close(f"{tag} {n}", g, r, gr, ga))
+        log(f"[kernels] flash_attention {tag} {name} causal={causal} "
+            f"window={window}: max abs err fwd {e_fwd:.3e} (rtol {fr}, "
+            f"atol {fa}), bwd {e_bwd:.3e} (rtol {gr}, atol {ga})")
+        return e_fwd, e_bwd
+
+    # the reference's kernel-test cases, (B, H, S, D) -> G = 1
+    for B, H, S, D in [(1, 2, 128, 32), (2, 1, 256, 64), (1, 2, 128, 80)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal, window in ((True, 0), (True, 48), (False, 0)):
+                case(f"({B},{H},{S},{D})", (B, S, H, 1, D), dtype, causal,
+                     window)
+    case("GQA (2,128,2,3,32)", (2, 128, 2, 3, 32), torch.float32, True, 0)
+    for S in (1, 100, 200):
+        for causal, window in ((True, 0), (False, 30)):
+            case(f"ragged (1,{S},2,2,16)", (1, S, 2, 2, 16), torch.float32,
+                 causal, window)
+    for dtype in (torch.bfloat16, torch.float32):
+        e_fwd, e_bwd = case(f"path {FA_PATH}", FA_PATH, dtype, True, 0,
+                            chunk=1024)
+        if dtype == torch.bfloat16:
+            path_errs = {"fwd": e_fwd, "bwd": e_bwd}
+    torch.cuda.empty_cache()
+    return path_errs
+
+
 # --------------------------------------------------------------------- #
-# 4. the slice: coded training of the paper's MLP
+# 4-5. the paths
 # --------------------------------------------------------------------- #
 class PhaseTimer:
     """Host clock around each trainer phase, synchronised with the card at
@@ -204,7 +354,7 @@ class PhaseTimer:
             torch.cuda.synchronize()
 
 
-def _trainer(scheme, device, timer):
+def _mlp_trainer(scheme, device, timer):
     import torch
 
     from repro_torch.data.pipeline import SyntheticClassificationDataset
@@ -220,25 +370,32 @@ def _trainer(scheme, device, timer):
     data = SyntheticClassificationDataset(
         spec.K, EXAMPLES_PER_PARTITION, DIMS[0], DIMS[-1], seed=0,
         device=device)
-    return CodedTrainer(spec, scheme, data, adamw(1e-3), params=params,
+    return CodedTrainer(None, spec, scheme, data, adamw(1e-3), params=params,
                         loss_fn=mlp_loss, seed=0, device=device,
                         phase_timer=timer)
 
 
-def slice_phase():
-    """Returns (launches during the main path, the main path's logs, its
-    phase timer)."""
+def _check_params(tag, params):
+    import torch
+
+    from repro_torch.optim.optimizers import tree_leaves
+    for p in tree_leaves(params):
+        if p.device.type != "cuda":
+            raise AssertionError(f"{tag}: params left the card")
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{tag}: non-finite params")
+
+
+def mlp_phase():
+    """Returns (launches during the path, its logs, its phase timer)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.coded_reduce import coded_reduce
-    from repro_torch.optim.optimizers import tree_leaves
-
     timer = PhaseTimer(sync=True)
-    trainers = [_trainer(s, "cuda", timer) for s in SCHEMES]
+    trainers = [_mlp_trainer(s, "cuda", timer) for s in SCHEMES]
     torch.cuda.synchronize()
-    # ---- the main path: counts zeroed just before, read just after ----
-    coded_reduce.launches = 0
+    # ---- the path: counts zeroed just before, read just after ----
+    reset_counts()
     t0 = time.perf_counter()
     logs = {}
     decode_errs = []
@@ -250,36 +407,24 @@ def slice_phase():
             if lg.decode_ok:
                 decode_errs.append(check_close(
                     f"{scheme} epoch {epoch} decoded vs full-batch gradient",
-                    torch.from_numpy(tr.last_decoded),
-                    torch.from_numpy(tr.last_full_grad), 1e-4, 1e-5))
+                    tr.last_decoded, tr.last_full_grad, 1e-4, 1e-5))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"coded_reduce": coded_reduce.launches}
+    launches = read_counts()
     # ---------------------------------------------------------------------
     n_decoded = sum(lg.decode_ok for v in logs.values() for lg in v)
-    log(f"[slice] {len(SCHEMES)} schemes x {EPOCHS} epochs on the card in "
-        f"{wall:.2f} s; {n_decoded} decoded, coded_reduce launches "
-        f"{launches['coded_reduce']}; decoded vs full-batch max abs err "
-        f"{max(decode_errs, default=0.0):.3e}")
-    if n_decoded == 0:
-        raise AssertionError("no epoch decoded: the kernel was never on "
-                             "the path")
-    if launches["coded_reduce"] != n_decoded:
+    log(f"[mlp] {len(SCHEMES)} schemes x {EPOCHS} epochs on the card in "
+        f"{wall:.2f} s; {n_decoded} decoded; launches {launches}; decoded "
+        f"vs full-batch max abs err {max(decode_errs, default=0.0):.3e}")
+    if n_decoded == 0 or launches["coded_reduce"] != n_decoded:
         raise AssertionError(f"coded_reduce launched "
                              f"{launches['coded_reduce']} times for "
                              f"{n_decoded} decoded epochs")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
     for scheme, tr in zip(SCHEMES, trainers):
-        if not all(p.device.type == "cuda" for p in tree_leaves(tr.params)):
-            raise AssertionError(f"{scheme}: params left the card")
-        for p in tree_leaves(tr.params):
-            if not bool(torch.isfinite(p).all()):
-                raise AssertionError(f"{scheme}: non-finite params")
+        _check_params(scheme, tr.params)
     for scheme in SCHEMES:
         for lg in logs[scheme]:
-            log(f"[slice] {scheme} epoch {lg.epoch}: decode_ok="
+            log(f"[mlp] {scheme} epoch {lg.epoch}: decode_ok="
                 f"{lg.decode_ok} slots={lg.n_slots} uploads={lg.n_uploads} "
                 f"sim_time={lg.time:.4f} loss={lg.loss:.6f}")
 
@@ -287,7 +432,7 @@ def slice_phase():
     # losses (cuBLAS and the CPU's BLAS sum float32 in other orders)
     t0 = time.perf_counter()
     for scheme in SCHEMES:
-        tr = _trainer(scheme, "cpu", None)
+        tr = _mlp_trainer(scheme, "cpu", None)
         for epoch in range(EPOCHS):
             lc, lg = tr.run_epoch(epoch), logs[scheme][epoch]
             if (lc.decode_ok, lc.n_slots, lc.time) != \
@@ -300,13 +445,153 @@ def slice_phase():
                                equal_nan=True):
                 raise AssertionError(f"{scheme} epoch {epoch}: loss on the "
                                      f"card {lg.loss}, on the CPU {lc.loss}")
-    log(f"[slice] the same {len(SCHEMES) * EPOCHS} epochs on the CPU agree "
+    log(f"[mlp] the same {len(SCHEMES) * EPOCHS} epochs on the CPU agree "
         f"({time.perf_counter() - t0:.1f} s)")
+    del trainers
     return launches, logs, timer
 
 
+def lm_phase():
+    """The transformer path.  Returns (launches, logs, phase timer, peak
+    device bytes, payload bytes)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.sim import scenario_spec
+    from repro_torch.train import CodedTrainer
+
+    cfg = lm_config()
+    spec = scenario_spec(SCENARIO)
+    D = lm_payload()
+    # one upload is one payload unit: grad_bytes = 1.0, the scale the
+    # scenarios were tuned for (4 MiB a unit would make it 588 units)
+    bytes_per_unit = 4.0 * D
+    log(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab}, {cfg.n_layers} of 24 layers, "
+        f"compute {cfg.compute_dtype}, remat {cfg.remat}; D = {D} "
+        f"({4 * D} bytes a gradient); bytes_per_unit = {bytes_per_unit:.0f}"
+        f" -> grad_bytes 1.0")
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    data = SyntheticLMDataset(spec.K, 1, LM_SEQ, cfg.vocab, seed=0,
+                              device="cuda")
+    timer = PhaseTimer(sync=True)
+    logs = {}
+    decode_errs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path: counts zeroed just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    for scheme in SCHEMES:
+        tr = CodedTrainer(cfg, spec, scheme, data, adamw(1e-3),
+                          params=params0, seed=0,
+                          bytes_per_unit=bytes_per_unit, device="cuda",
+                          phase_timer=timer)
+        if tr.grad_bytes != 1.0 or tr.partition.D != D:
+            raise AssertionError(f"payload {tr.partition.D} entries, "
+                                 f"{tr.grad_bytes} units")
+        logs[scheme] = []
+        for epoch in range(LM_EPOCHS):
+            before = (tr.params, tr.opt_state)
+            lg = tr.run_epoch(epoch)
+            logs[scheme].append(lg)
+            if lg.decode_ok:
+                if not math.isfinite(lg.loss):
+                    raise AssertionError(f"{scheme} epoch {epoch}: loss "
+                                         f"{lg.loss}")
+                decode_errs.append(check_close(
+                    f"{scheme} epoch {epoch} decoded vs full-batch gradient",
+                    tr.last_decoded, tr.last_full_grad, 1e-4, 1e-5))
+            elif tr.params is not before[0] or \
+                    tr.opt_state is not before[1] or \
+                    not math.isnan(lg.loss):
+                raise AssertionError(f"{scheme} epoch {epoch}: a failed "
+                                     f"decode stepped the model")
+            log(f"[lm] {scheme} epoch {epoch}: decode_ok={lg.decode_ok} "
+                f"slots={lg.n_slots} uploads={lg.n_uploads} sim_time="
+                f"{lg.time:.4f} loss={lg.loss:.6f}")
+        _check_params(scheme, tr.params)
+        del tr, before
+        gc.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    n_epochs = len(SCHEMES) * LM_EPOCHS
+    n_decoded = sum(lg.decode_ok for v in logs.values() for lg in v)
+    K, L = spec.K, cfg.n_layers
+    remat = 2 if cfg.remat in ("full", "dots") else 1
+    want = {"coded_reduce": n_decoded,
+            "flash_attention_fwd": remat * K * L * n_epochs,
+            "flash_attention_bwd": K * L * n_epochs}
+    log(f"[lm] {len(SCHEMES)} schemes x {LM_EPOCHS} epochs on the card in "
+        f"{wall:.2f} s; {n_decoded} decoded; launches {launches} (the path "
+        f"implies {want}); decoded vs full-batch max abs err "
+        f"{max(decode_errs, default=0.0):.3e}; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    if n_decoded == 0:
+        raise AssertionError("no epoch decoded: coded_reduce was never on "
+                             "the path")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, the path implies "
+                             f"{want}")
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, logs, timer, peak, 4 * D
+
+
+def tiny_phase():
+    """``repro_torch.train.e2e`` at TINY, 5 seeds x 4 schemes x 2 epochs,
+    on the card and on the CPU from the same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import e2e
+
+    params = init_params(e2e.TINY, torch.Generator().manual_seed(0),
+                         device="cpu")
+    t0 = time.perf_counter()
+    card = e2e.run_benchmark(e2e.TINY, n_seeds=5, params=params,
+                             device="cuda")
+    t1 = time.perf_counter()
+    cpu = e2e.run_benchmark(e2e.TINY, n_seeds=5, params=params, device="cpu")
+    for scheme in SCHEMES:
+        for seed, (cg, cc) in enumerate(zip(card["schemes"][scheme]["curves"],
+                                            cpu["schemes"][scheme]["curves"])):
+            if (cg["decode_ok"], cg["wall_clock"]) != \
+                    (cc["decode_ok"], cc["wall_clock"]):
+                raise AssertionError(f"TINY {scheme} seed {seed}: card "
+                                     f"{cg['decode_ok']} {cg['wall_clock']},"
+                                     f" CPU {cc['decode_ok']} "
+                                     f"{cc['wall_clock']}")
+            # AdamW's first step moves an entry whose gradient cancels to
+            # float32 noise by up to lr, so later losses agree to ~1e-4
+            lg = np.array(cg["loss"], dtype=float)
+            lc = np.array(cc["loss"], dtype=float)
+            if not np.allclose(lg, lc, rtol=1e-3, atol=0.0, equal_nan=True):
+                raise AssertionError(f"TINY {scheme} seed {seed}: losses "
+                                     f"{lg} on the card, {lc} on the CPU")
+    speedups = (card["speedup_vs_uncoded"], card["speedup_vs_cyclic"])
+    if speedups != (cpu["speedup_vs_uncoded"], cpu["speedup_vs_cyclic"]) \
+            or abs(speedups[0] - 1.3444444444444443) > 1e-9 \
+            or abs(speedups[1] - 1.4) > 1e-9:
+        raise AssertionError(f"TINY speedups {speedups} on the card, "
+                             f"{cpu['speedup_vs_uncoded']}, "
+                             f"{cpu['speedup_vs_cyclic']} on the CPU")
+    log(f"[tiny] e2e TINY, 5 seeds x 4 schemes x 2 epochs: card "
+        f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s; equal "
+        f"decode outcomes and simulated times; two-stage "
+        f"{speedups[0]:.4f}x vs uncoded, {speedups[1]:.4f}x vs cyclic")
+
+
 # --------------------------------------------------------------------- #
-# 5. times
+# 7. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -333,20 +618,20 @@ def time_ms(fn, reps=50, cold=True) -> float:
     return float(sorted(times)[len(times) // 2])
 
 
-def coded_reduce_times(n_slots, D) -> dict:
+def coded_reduce_times(n_slots, D, reps=50) -> dict:
     import torch
 
     from repro_torch.kernels.coded_reduce import (coded_reduce,
                                                   coded_reduce_ref)
     g, w = _uploads(3, n_slots, D, torch.float32, scale=0.1)
-    saved = coded_reduce.launches
+    counts = read_counts()
     err = check_close(f"coded_reduce ({n_slots},{D}) timed inputs",
                       coded_reduce(g, w), coded_reduce_ref(g, w), 1e-4, 1e-4)
-    row = {"ms": time_ms(lambda: coded_reduce(g, w)),
-           "plain_ms": time_ms(lambda: coded_reduce_ref(g, w)),
-           "library_ms": time_ms(lambda: w @ g),
-           "warm_ms": time_ms(lambda: coded_reduce(g, w), cold=False)}
-    coded_reduce.launches = saved          # timing launches are not the path's
+    row = {"ms": time_ms(lambda: coded_reduce(g, w), reps),
+           "plain_ms": time_ms(lambda: coded_reduce_ref(g, w), reps),
+           "library_ms": time_ms(lambda: w @ g, reps),
+           "warm_ms": time_ms(lambda: coded_reduce(g, w), reps, cold=False)}
+    set_counts(counts)                   # these launches are not a path's
     n_bytes = n_slots * D * g.element_size() + 4 * n_slots + 4 * D
     flops = 2 * n_slots * D
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -360,7 +645,77 @@ def coded_reduce_times(n_slots, D) -> dict:
         f"{row['bound_ms']:.5f} ms "
         f"({n_bytes} bytes at 3.35 TB/s) -> "
         f"{row['bound_ms'] / row['ms']:.1%} of the bound")
+    del g, w
+    torch.cuda.empty_cache()
     return row
+
+
+def flash_times(dtype) -> dict:
+    """Forward, backward and forward+backward of the kernel at the path's
+    shape, beside the plain version, ``scaled_dot_product_attention``
+    (timed as a yardstick only) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_fwd, flash_attention_fwd_ref)
+
+    B, S, KV, G, D = FA_PATH
+    H = KV * G
+    q, k, v, do = _fa_inputs(5, FA_PATH, dtype)
+    counts = read_counts()
+    out, lse = flash_attention_fwd(q, k, v)
+    t = {"fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v), 30),
+         "bwd_ms": time_ms(lambda: flash_attention_bwd(
+             q, k, v, out, lse, do), 20),
+         "plain_fwd_ms": time_ms(lambda: flash_attention_fwd_ref(q, k, v),
+                                 10),
+         "plain_bwd_ms": time_ms(lambda: flash_attention_bwd_ref(
+             q, k, v, out, lse, do), 5)}
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd_bwd():
+        o = flash_attention(*leaves)
+        torch.autograd.grad(o, leaves, do)
+    t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
+    # the library's layout, (B, H, S, D), made once and not timed
+    qh, kh, vh, doh = [x.reshape(B, S, H, D).transpose(1, 2).contiguous()
+                       for x in (q, k, v, do)]
+    t["sdpa_fwd_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        30)
+    lib = [x.detach().clone().requires_grad_(True) for x in (qh, kh, vh)]
+    lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+    t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib, doh, retain_graph=True), 20)
+    set_counts(counts)                   # these launches are not a path's
+
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    elt = q.element_size()
+    flops_fwd = B * H * S * (S + 1) // 2 * 4 * D       # causal triangle
+    flops_bwd = 2.5 * flops_fwd                        # 5 products, not 2
+    bytes_fwd = (2 * B * S * H * D + 2 * B * S * KV * D) * elt + 4 * B * H * S
+    bytes_bwd = (4 * B * S * H * D + 4 * B * S * KV * D) * elt + \
+        4 * B * H * S
+    for name, flops, n_bytes in (("fwd", flops_fwd, bytes_fwd),
+                                 ("bwd", flops_bwd, bytes_bwd)):
+        t_ops, t_bytes = flops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        t[f"{name}_bound_ms"] = max(t_ops, t_bytes)
+        t[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes \
+            else "bytes"
+        t[f"{name}_flops"] = flops
+    log(f"[times] flash_attention {FA_PATH} {str(dtype)[6:]} causal: "
+        f"forward {t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.4f}, "
+        f"sdpa {t['sdpa_fwd_ms']:.4f}, bound {t['fwd_bound_ms']:.4f} by "
+        f"{t['fwd_bound_by']}: {flops_fwd / 1e9:.1f} GFLOP, "
+        f"{flops_fwd / t['fwd_ms'] / 1e9:.2f} TFLOP/s); backward "
+        f"{t['bwd_ms']:.4f} ms (plain {t['plain_bwd_ms']:.4f}, sdpa "
+        f"{t['sdpa_bwd_ms']:.4f}, bound {t['bwd_bound_ms']:.4f}); forward+"
+        f"backward through autograd {t['fwd_bwd_ms']:.4f} ms")
+    del q, k, v, do, out, lse, leaves, qh, kh, vh, doh, lib, lib_out
+    torch.cuda.empty_cache()
+    return t
 
 
 def slot_round_trip_ms(device, reps=200) -> float:
@@ -396,75 +751,180 @@ def slot_round_trip_ms(device, reps=200) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def data_ms(device, reps=3) -> float:
-    """Host time to make one epoch's K partitions of the slice's dataset
-    on ``device`` (numpy draws, and on the card the copy there)."""
+def data_ms(make, reps=3) -> float:
+    """Host time to make one epoch's K partitions of a dataset (numpy
+    draws, and on the card the copy there)."""
     import torch
-
-    from repro_torch.data.pipeline import SyntheticClassificationDataset
-    from repro_torch.sim import scenario_spec
-    data = SyntheticClassificationDataset(
-        scenario_spec(SCENARIO).K, EXAMPLES_PER_PARTITION, DIMS[0], DIMS[-1],
-        seed=0, device=device)
+    data = make()
     t0 = time.perf_counter()
     for epoch in range(reps):
         for k in range(data.K):
             data.partition(epoch, k)
-    if device == "cuda":
+    if data.device.type == "cuda":
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def times_phase(launches, logs, timer, errs) -> list:
-    from collections import Counter
-
+def phase_split(tag, timer, logs):
     import numpy as np
-
-    # the MLP's payload at the most uploads an epoch of the path reduces
-    # (M = 6, every worker arrived, as the uncoded scheme gives)
-    n_main, D = 6, 235_146
-    counts = Counter(lg.n_uploads for v in logs.values() for lg in v
-                     if lg.decode_ok)
-    log(f"[times] upload counts on the main path: {dict(counts)}")
-    main = coded_reduce_times(n_main, D)
-    coded_reduce_times(16, 2 ** 24)
-
-    epochs = [lg for v in logs.values() for lg in v]
     for name in PHASES:
         ms = timer.ms[name]
         if not ms:               # encode/decode/step skip a failed decode
-            log(f"[times] phase {name}: no epoch")
+            log(f"[times] {tag} phase {name}: no epoch")
             continue
-        log(f"[times] phase {name}: {len(ms)} epochs, mean "
-            f"{np.mean(ms):.3f} ms, min {np.min(ms):.3f}, max "
-            f"{np.max(ms):.3f}")
-    log(f"[times] data for one epoch (K partitions x "
-        f"{EXAMPLES_PER_PARTITION} examples): {data_ms('cpu'):.1f} ms of "
-        f"numpy draws, {data_ms('cuda'):.1f} ms with the copy to the card")
-    slots = sum(lg.n_slots for lg in epochs)
-    log(f"[times] co-sim: {slots} slots in {sum(timer.ms['cosim']):.1f} ms"
-        f" -> {sum(timer.ms['cosim']) / max(slots, 1):.4f} ms per slot")
+        log(f"[times] {tag} phase {name}: {len(ms)} epochs, mean "
+            f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f}, min "
+            f"{np.min(ms):.3f}, max {np.max(ms):.3f}; by epoch "
+            f"{[round(x, 1) for x in ms]}")
+    slots = sum(lg.n_slots for v in logs.values() for lg in v)
+    log(f"[times] {tag} co-sim: {slots} slots in "
+        f"{sum(timer.ms['cosim']):.1f} ms -> "
+        f"{sum(timer.ms['cosim']) / max(slots, 1):.4f} ms per slot")
+
+
+def lm_shard_profile():
+    """One shard's forward and backward on the transformer path under
+    ``torch.profiler``: device time by kernel family, and the share of the
+    window in which the card ran no kernel (the profiler's own host cost
+    is inside the window, so that share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.coded_trainer import _value_and_grad
+
+    cfg = lm_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    batch = SyntheticLMDataset(6, 1, LM_SEQ, cfg.vocab,
+                               device="cuda").partition(0, 0)
+    grad = _value_and_grad(lambda p, b: loss_fn(p, b, cfg))
+    counts = read_counts()
+    grad(params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grad(params, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    set_counts(counts)                   # these launches are not a path's
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"[times] lm shard profile: {wall:.1f} ms host time; the "
+            f"profiler recorded no device events, so device time by "
+            f"kernel and the idle share are not measured")
+        return
+    fam = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    top = {}
+    for e in kernels:
+        name, us = e.name, e.time_range.elapsed_us()
+        low = name.lower()
+        key = ("flash_attention" if "fa_" in name else
+               "matmul" if any(w in low for w in (
+                   "gemm", "xmma", "cutlass", "cublas", "nvjet"))
+               else "other")
+        fam[key] += us / 1e3
+        top[name[:60]] = top.get(name[:60], 0.0) + us / 1e3
+    busy = sum(fam.values())
+    log(f"[times] lm shard profile (forward + backward of one "
+        f"{LM_SEQ}-token shard): {wall:.1f} ms host time, {busy:.1f} ms of "
+        f"kernels ({len(kernels)} launches) -> the card idle "
+        f"{max(0.0, 1 - busy / wall):.1%} of the window; "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                    for k, v in fam.items()))
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[times]   {ms:9.2f} ms  {name}")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def times_phase(mlp, lm, errs, fa_errs) -> list:
+    from collections import Counter
+
+    from repro_torch.data.pipeline import (SyntheticClassificationDataset,
+                                           SyntheticLMDataset)
+    from repro_torch.sim import scenario_spec
+
+    mlp_launches, mlp_logs, mlp_timer = mlp
+    lm_launches, lm_logs, lm_timer, peak, payload_bytes = lm
+    D_lm = payload_bytes // 4
+    for tag, logs in (("mlp", mlp_logs), ("lm", lm_logs)):
+        counts = Counter(lg.n_uploads for v in logs.values() for lg in v
+                         if lg.decode_ok)
+        log(f"[times] {tag} upload counts on the path: {dict(counts)}")
+    # the payloads at the most uploads an epoch reduces (M = 6)
+    main = coded_reduce_times(6, D_lm, reps=20)
+    coded_reduce_times(6, 235_146)
+    coded_reduce_times(16, 2 ** 24)
+    import torch
+    fa = {"bf16": flash_times(torch.bfloat16),
+          "f32": flash_times(torch.float32)}
+
+    phase_split("mlp", mlp_timer, mlp_logs)
+    phase_split("lm", lm_timer, lm_logs)
+    bf = fa["bf16"]
+    n_ep = sum(len(v) for v in lm_logs.values())
+    log(f"[times] lm attention per epoch, from the kernels' timed cost x "
+        f"their launches: "
+        f"{(lm_launches['flash_attention_fwd'] * bf['fwd_ms'] + lm_launches['flash_attention_bwd'] * bf['bwd_ms']) / n_ep:.1f} ms")  # noqa: E501
+    lm_shard_profile()
+    K = scenario_spec(SCENARIO).K
+    log(f"[times] mlp data for one epoch (K partitions x "
+        f"{EXAMPLES_PER_PARTITION} examples): "
+        f"{data_ms(lambda: SyntheticClassificationDataset(K, EXAMPLES_PER_PARTITION, DIMS[0], DIMS[-1], device='cpu')):.1f} ms of numpy draws, "  # noqa: E501
+        f"{data_ms(lambda: SyntheticClassificationDataset(K, EXAMPLES_PER_PARTITION, DIMS[0], DIMS[-1], device='cuda')):.1f} ms with the copy to the card")  # noqa: E501
+    log(f"[times] lm data for one epoch (K sequences of {LM_SEQ} tokens): "
+        f"{data_ms(lambda: SyntheticLMDataset(K, 1, LM_SEQ, lm_config().vocab, device='cuda')):.1f} ms")  # noqa: E501
     log(f"[times] co-sim slot, device part only (H2D rows, schedule_slot, "
         f"D2H decisions): {slot_round_trip_ms('cuda'):.4f} ms on the card, "
         f"{slot_round_trip_ms('cpu'):.4f} ms on the CPU")
+    log(f"[times] lm peak device memory over the path: {peak} bytes "
+        f"({peak / 1e9:.2f} GB)")
+
+    src = "src/repro_torch/kernels"
     return [{
         "name": "coded_reduce", "route": "cuda",
-        "source": "src/repro_torch/kernels/coded_reduce/csrc/coded_reduce.cu",
+        "source": f"{src}/coded_reduce/csrc/coded_reduce.cu",
         "replaces": "src/repro/kernels/coded_reduce/coded_reduce.py:41",
-        "launches": launches["coded_reduce"],
-        "max_abs_err": max(errs.get((n_main, D), 0.0), main["max_abs_err"]),
+        "launches": mlp_launches["coded_reduce"] +
+        lm_launches["coded_reduce"],
+        "max_abs_err": max(errs.get((6, D_lm), 0.0), main["max_abs_err"]),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}]
+        "library_ms": main["library_ms"]}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:88",
+        "launches": lm_launches["flash_attention_fwd"],
+        "max_abs_err": fa_errs["fwd"],
+        "ms": bf["fwd_ms"], "plain_ms": bf["plain_fwd_ms"],
+        "bound_ms": bf["fwd_bound_ms"], "bound_by": bf["fwd_bound_by"],
+        "library_ms": bf["sdpa_fwd_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/attention.py:204",
+        "launches": lm_launches["flash_attention_bwd"],
+        "max_abs_err": fa_errs["bwd"],
+        "ms": bf["bwd_ms"], "plain_ms": bf["plain_bwd_ms"],
+        "bound_ms": bf["bwd_bound_ms"], "bound_by": bf["bwd_bound_by"],
+        "library_ms": bf["sdpa_bwd_ms"]}]
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
     errs = kernel_phase()
-    launches, logs, timer = slice_phase()
-    kernels = times_phase(launches, logs, timer, errs)
+    fa_errs = flash_kernel_phase()
+    mlp = mlp_phase()
+    lm = lm_phase()
+    tiny_phase()
+    kernels = times_phase(mlp, lm, errs, fa_errs)
     import torch
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

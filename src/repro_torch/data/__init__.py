@@ -1,3 +1,5 @@
-from .pipeline import PartitionedDataset, SyntheticClassificationDataset
+from .pipeline import (PartitionedDataset, SyntheticClassificationDataset,
+                       SyntheticLMDataset)
 
-__all__ = ["PartitionedDataset", "SyntheticClassificationDataset"]
+__all__ = ["PartitionedDataset", "SyntheticClassificationDataset",
+           "SyntheticLMDataset"]

@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PartitionedDataset", "SyntheticClassificationDataset"]
+__all__ = ["PartitionedDataset", "SyntheticLMDataset",
+           "SyntheticClassificationDataset"]
 
 
 class PartitionedDataset:
@@ -27,6 +28,45 @@ class PartitionedDataset:
 
     def partition(self, epoch: int, k: int):
         raise NotImplementedError
+
+
+class SyntheticLMDataset(PartitionedDataset):
+    """Procedural token sequences with learnable structure.
+
+    Tokens follow a noisy Markov chain determined by the seed, giving the
+    model something learnable (loss decreases) while being fully offline.
+    """
+
+    def __init__(self, K: int, examples_per_partition: int, seq_len: int,
+                 vocab: int, seed: int = 0, device="cuda"):
+        super().__init__(K, examples_per_partition, seed, device)
+        self.seq_len = seq_len
+        self.vocab = vocab
+        rng = np.random.default_rng(seed)
+        # sparse-ish transition table for structure
+        self._trans = rng.integers(0, vocab, size=(vocab,)).astype(np.int64)
+
+    def partition(self, epoch: int, k: int) -> dict:
+        """``{'tokens', 'labels': (n, S) int32, 'weights': (n, S) float32}``
+        on ``device``; weights sum to one, the last position has none."""
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + epoch) * 131_071 + k)
+        B, S, V = self.n, self.seq_len, self.vocab
+        toks = np.empty((B, S), np.int64)
+        toks[:, 0] = rng.integers(0, V, size=B)
+        noise = rng.random((B, S)) < 0.15
+        rand_tok = rng.integers(0, V, size=(B, S))
+        for t in range(1, S):
+            nxt = self._trans[toks[:, t - 1]]
+            toks[:, t] = np.where(noise[:, t], rand_tok[:, t], nxt)
+        labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
+        w = np.ones((B, S), np.float32)
+        w[:, -1] = 0.0                      # no target for last position
+        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(
+                    self.device),
+                "labels": torch.from_numpy(labels.astype(np.int32)).to(
+                    self.device),
+                "weights": torch.from_numpy(w / w.sum()).to(self.device)}
 
 
 class SyntheticClassificationDataset(PartitionedDataset):

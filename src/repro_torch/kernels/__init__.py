@@ -11,4 +11,6 @@ __all__ = ["kernel_sources"]
 
 def kernel_sources() -> List[Path]:
     from repro_torch.kernels.coded_reduce.ops import SOURCE as coded_reduce
-    return [coded_reduce]
+    from repro_torch.kernels.flash_attention.ops import \
+        SOURCE as flash_attention
+    return [coded_reduce, flash_attention]

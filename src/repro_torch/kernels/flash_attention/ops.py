@@ -1,0 +1,165 @@
+"""Wrapper of the flash-attention kernel: forward, backward, autograd.
+
+``flash_attention(q, k, v)`` is a ``torch.autograd.Function`` whose forward
+and backward are the hand-written kernels of ``csrc/flash_attention.cu``
+(built with nvcc at first use) on a CUDA tensor, launched on the current
+stream, or an error; on a CPU tensor they are the plain versions of
+:mod:`.ref`.  ``flash_attention.fwd_launches`` and ``.bwd_launches`` count
+the kernels' launches (one forward kernel per forward call; the dq and
+dk/dv kernels of one backward call count once), not the CPU path's calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
+
+__all__ = ["MAX_HEAD_DIM", "SOURCE", "flash_attention",
+           "flash_attention_bwd", "flash_attention_fwd"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+#: Widest head the kernel takes (its rows sit in shared memory).
+MAX_HEAD_DIM = 128
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load_library(str(SOURCE))
+    lib.fa_fwd.argtypes = [_I] + [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]
+    lib.fa_bwd.argtypes = [_I] + [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]
+    lib.fa_fwd.restype = lib.fa_bwd.restype = _I
+    lib.fa_error_string.argtypes = [_I]
+    lib.fa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape or \
+            q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[3]:
+        raise ValueError(f"want q (B,S,KV,G,D) and k, v (B,S,KV,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    D = q.shape[4]
+    if q.device.type == "cuda" and (D % 8 or not 8 <= D <= MAX_HEAD_DIM):
+        raise ValueError(f"the kernel takes a head width that is a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}, not {D}")
+    if q.shape[1] == 0:
+        raise ValueError("empty sequence")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attention {what} launch failed: CUDA "
+                           f"error {err} "
+                           f"({_library().fa_error_string(err).decode()})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_chunk: int = 1024, kv_chunk: int = 1024):
+    """``(out (B,S,KV,G,D) in q's type, lse (B,KV,G,S) float32)``.  The
+    chunk sizes shape only the plain version's tiles; the kernel's are
+    64 x 64."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
+    B, S, KV, G, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _library().fa_fwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, S, KV, G, D, D ** -0.5,
+            int(causal), int(window), _stream(q))
+    _raise_on(err, "forward")
+    flash_attention.fwd_launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int = 0, q_chunk: int = 1024,
+                        kv_chunk: int = 1024):
+    """``(dq, dk, dv)`` in the inputs' types, from the forward's ``out``
+    and ``lse`` and the output's gradient ``do``."""
+    _check(q, k, v)
+    B, S, KV, G, D = q.shape
+    for name, t, dtype in (("out", out, q.dtype), ("do", do, q.dtype),
+                           ("lse", lse, torch.float32)):
+        want = (B, KV, G, S) if name == "lse" else tuple(q.shape)
+        if tuple(t.shape) != want or t.dtype != dtype or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {want} {dtype} "
+                             f"tensor on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    dvec = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _library().fa_bwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, KV, G, D,
+            D ** -0.5, int(causal), int(window), _stream(q))
+    _raise_on(err, "backward")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves ``(q, k, v, out, lse)``, as the reference's ``_fa_fwd``; the
+    backward recomputes the tiles from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.to(q.dtype).contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Exact attention, differentiable: q (B,S,KV,G,D), k and v (B,S,KV,D)
+    of one type (float32 or bfloat16), contiguous -> (B,S,KV,G,D) in q's
+    type.  ``scale = D**-0.5``; ``window > 0`` adds a sliding window."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+flash_attention.fwd_launches = 0
+flash_attention.bwd_launches = 0

@@ -1,4 +1,5 @@
-"""Models of the port (so far the paper's MLP classifier)."""
+"""Models of the port: the paper's MLP classifier (``mlp``) and the dense
+transformer (``transformer``, with ``attention`` and ``common``)."""
 from .mlp import (init_mlp, mlp_accuracy, mlp_logits, mlp_loss,
                   params_from_numpy)
 

@@ -1,9 +1,13 @@
 """CodedTrainer: a real torch model trained through the co-simulated uplink.
 
-The torch counterpart of ``repro.train.coded_trainer``.  Per epoch:
+The torch counterpart of ``repro.train.coded_trainer``.  By default it
+trains the transformer of its ``cfg`` (``repro_torch.models.transformer``);
+a caller passes ``loss_fn=`` (or ``grad_fn=``) and ``params=`` with
+``cfg=None`` for another model, such as the paper's MLP.  Per epoch:
 
   1. **shard gradients** — one backward pass per data shard k of the real
-     model (``loss_fn(params, D_k)``), stacked into ``G ∈ (K, D)`` f32;
+     model (``loss_fn(params, D_k)``), each flattened straight into row k
+     of a preallocated ``G ∈ (K, D)`` f32;
   2. **co-sim epoch** — ``EdgeCluster.run_epoch`` samples the compute
      phase and drains each worker's *measured* payload (the flattened
      gradient's size) through the Lyapunov scheduler; decode is gated on
@@ -22,8 +26,10 @@ The torch counterpart of ``repro.train.coded_trainer``.  Per epoch:
      are left untouched (the same tensors), the epoch burned simulated
      wall-clock only.
 
-Everything on the device is float32: the trainer turns TF32 off for
-matrix products and cuDNN, as the reference computes in full float32.
+The trainer turns TF32 off for matrix products and cuDNN on the card, as
+the reference computes float32 products in full float32; a model whose
+``compute_dtype`` is bfloat16 computes in bfloat16 all the same, as in the
+reference.  The gradients, uploads and decode are float32.
 """
 from __future__ import annotations
 
@@ -36,11 +42,12 @@ import torch
 
 from repro_torch.core.runtime import EpochResult
 from repro_torch.kernels.coded_reduce import coded_reduce
+from repro_torch.models import transformer
 from repro_torch.optim.optimizers import (tree_leaves, tree_map,
                                           tree_unflatten)
 from repro_torch.sim.spec import ScenarioSpec, build_cluster
 from repro_torch.train.partition import (DEFAULT_BYTES_PER_UNIT,
-                                         GradPartition, flatten_grads)
+                                         GradPartition)
 
 __all__ = ["CodedTrainer", "TrainEpochLog", "decode_weights_from_result",
            "effective_code_matrix"]
@@ -99,34 +106,49 @@ def _value_and_grad(loss_fn: Callable) -> Callable:
 class CodedTrainer:
     """One (model × scenario × scheme) coded-training experiment.
 
-    ``params`` is the model's parameter tree and ``loss_fn(params, batch)``
-    its scalar loss (the MLP: ``init_mlp``/``params_from_numpy`` and
-    ``mlp_loss``).  ``spec`` supplies the cluster physics; its synthetic
-    ``grad_bytes`` is replaced by the payload measured from the model's
-    flattened gradient, calibrated through ``bytes_per_unit``.  The spec
-    the cluster was built from is ``self.spec``.
+    ``cfg`` is a :class:`~repro_torch.configs.ModelConfig`; the model is
+    its transformer, with ``params`` (default: :func:`transformer.init_params`
+    from ``seed`` on ``device``) and ``transformer.loss_fn``.  For another
+    model pass ``cfg=None``, its parameter tree as ``params`` and its scalar
+    ``loss_fn(params, batch)`` (the MLP: ``init_mlp``/``params_from_numpy``
+    and ``mlp_loss``), or a prebuilt ``grad_fn(params, batch) -> (loss,
+    grads)`` that several trainers can share.  ``spec`` supplies the
+    cluster physics; its synthetic ``grad_bytes`` is replaced by the
+    payload measured from the model's flattened gradient, calibrated
+    through ``bytes_per_unit``.  The spec the cluster was built from is
+    ``self.spec``.
 
     ``phase_timer(name, epoch)``, when given, is a context-manager factory
     wrapped around each phase of :meth:`run_epoch` (``shard_grads``,
     ``cosim``, ``encode``, ``decode_reduce``, ``optimizer_step``).
     """
 
-    def __init__(self, spec: ScenarioSpec, scheme: str, dataset, optimizer,
-                 *, params: Any, loss_fn: Callable, seed: int = 0,
+    def __init__(self, cfg, spec: ScenarioSpec, scheme: str, dataset,
+                 optimizer, *, params: Optional[Any] = None, seed: int = 0,
                  bytes_per_unit: float = DEFAULT_BYTES_PER_UNIT,
-                 device="cuda",
+                 loss_fn: Optional[Callable] = None,
+                 grad_fn: Optional[Callable] = None, device="cuda",
                  phase_timer: Optional[Callable] = None):
         if dataset.K != spec.K:
             raise ValueError(f"dataset has K={dataset.K} partitions, "
                              f"scenario wants K={spec.K}")
+        if cfg is None and (params is None or
+                            (loss_fn is None and grad_fn is None)):
+            raise ValueError("without a cfg, pass the model's params and "
+                             "its loss_fn (or grad_fn)")
+        self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            # the reference computes in full float32
+            # the reference computes float32 products in full float32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.scheme = scheme
         self.dataset = dataset
         self.optimizer = optimizer
+        if params is None:
+            params = transformer.init_params(
+                cfg, torch.Generator(device=self.device).manual_seed(seed),
+                device=self.device)
         self.params = tree_map(lambda p: p.to(self.device), params)
         self.opt_state = optimizer.init(self.params)
 
@@ -137,14 +159,19 @@ class CodedTrainer:
         self.spec = spec.with_overrides(grad_bytes=self.grad_bytes)
         self.cluster = build_cluster(self.spec, scheme, seed,
                                      device=self.device)
-        self._shard_grad = _value_and_grad(loss_fn)
+        if grad_fn is None:
+            grad_fn = _value_and_grad(
+                loss_fn if loss_fn is not None else
+                (lambda p, batch: transformer.loss_fn(p, batch, cfg)))
+        self._shard_grad = grad_fn
         self._phase_timer = phase_timer
         self.logs: List[TrainEpochLog] = []
         self.noop_steps = 0
-        # test/debug introspection: last epoch's decoded gradient and the
-        # uncoded full-batch reference it must match when decode succeeds
-        self.last_decoded: Optional[np.ndarray] = None
-        self.last_full_grad: Optional[np.ndarray] = None
+        # test/debug introspection, tensors on the trainer's device: last
+        # epoch's decoded gradient and the uncoded full-batch reference it
+        # must match when decode succeeds
+        self.last_decoded: Optional[torch.Tensor] = None
+        self.last_full_grad: Optional[torch.Tensor] = None
 
     def _phase(self, name: str, epoch: int):
         if self._phase_timer is None:
@@ -153,14 +180,24 @@ class CodedTrainer:
 
     # ------------------------------------------------------------------ #
     def shard_gradients(self, epoch: int):
-        """``(losses (K,), G (K, D) f32)`` — one backward per data shard."""
-        losses, rows = [], []
-        for k in range(self.dataset.K):
+        """``(losses (K,), G (K, D) f32)`` — one backward per data shard.
+
+        ``G`` is allocated once and each shard's gradient is flattened
+        straight into its row, then dropped: stacking a list of K
+        flattened gradients would hold them twice (14.8 GB more at
+        stablelm-1.6b's width with 4 layers, D = 616,581,120, K = 6).
+        """
+        K = self.dataset.K
+        G = torch.empty((K, self.partition.D), dtype=torch.float32,
+                        device=self.device)
+        losses = []
+        for k in range(K):
             loss, grads = self._shard_grad(
                 self.params, self.dataset.partition(epoch, k))
             losses.append(loss)
-            rows.append(flatten_grads(grads))
-        return torch.stack(losses), torch.stack(rows)
+            self.partition.flatten_into(grads, G[k])
+            del grads
+        return torch.stack(losses), G
 
     def _encode(self, result: EpochResult, G: torch.Tensor):
         """Worker-side encode: uploads of the contributing workers
@@ -177,20 +214,23 @@ class CodedTrainer:
 
     # ------------------------------------------------------------------ #
     def run_epoch(self, epoch: int) -> TrainEpochLog:
+        self.last_decoded = self.last_full_grad = None   # free them first
         with self._phase("shard_grads", epoch):
             losses, G = self.shard_gradients(epoch)
         # the co-sim epoch always runs (it owns the per-seed RNG stream),
         # whether or not the decode below ends up succeeding
         with self._phase("cosim", epoch):
             result = self.cluster.run_epoch(epoch)
+        self.last_full_grad = G.sum(dim=0)
         if result.decode_ok:
             with self._phase("encode", epoch):
                 uploads, a = self._encode(result, G)
+            del G
             with self._phase("decode_reduce", epoch):
                 decoded = coded_reduce(uploads, a)
             n_uploads = uploads.shape[0]
-            self.last_decoded = decoded.cpu().numpy()
-            self.last_full_grad = G.sum(dim=0).cpu().numpy()
+            del uploads
+            self.last_decoded = decoded
             with self._phase("optimizer_step", epoch):
                 self.params, self.opt_state = self.optimizer.update(
                     self.partition.unflatten(decoded), self.opt_state,
@@ -202,8 +242,6 @@ class CodedTrainer:
             # show a gap, not a dip.
             self.noop_steps += 1
             n_uploads = 0
-            self.last_decoded = None
-            self.last_full_grad = G.sum(dim=0).cpu().numpy()
             loss = float("nan")
         log = TrainEpochLog(
             epoch=epoch, loss=loss, time=float(result.time),

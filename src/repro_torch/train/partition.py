@@ -94,6 +94,22 @@ class GradPartition:
         return tree_unflatten(self.template, [
             p.view(s) for p, s in zip(parts, self.shapes)])
 
+    def flatten_into(self, tree: Any, out: torch.Tensor) -> torch.Tensor:
+        """Write ``tree``'s leaves, flattened in :func:`flatten_grads`'
+        order and cast to float32, into ``out`` (a ``(D,)`` float32 tensor,
+        e.g. a row of the shard-gradient matrix), with no intermediate
+        copy of the whole vector; returns ``out``."""
+        off = 0
+        for x in tree_leaves(tree):
+            n = x.numel()
+            out[off:off + n].copy_(x.reshape(-1))
+            off += n
+        if off != self.D or out.shape != (self.D,):
+            raise ValueError(f"tree of {off} entries into a "
+                             f"{tuple(out.shape)} row; this partition has "
+                             f"D={self.D}")
+        return out
+
     def grad_bytes(self,
                    bytes_per_unit: float = DEFAULT_BYTES_PER_UNIT) -> float:
         """This model's per-upload payload in scenario units."""

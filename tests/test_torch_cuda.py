@@ -60,7 +60,7 @@ def _trainer(scheme, device):
     params = init_mlp(torch.Generator().manual_seed(0), dims=(32, 32, 4),
                       device=device)
     return CodedTrainer(
-        spec, scheme,
+        None, spec, scheme,
         SyntheticClassificationDataset(spec.K, 16, 32, 4, device=device),
         adamw(1e-3), params=params, loss_fn=mlp_loss, device=device)
 
@@ -78,7 +78,8 @@ def test_trainer_decodes_through_the_kernel(cuda_device, scheme):
             (lc.decode_ok, lc.n_slots, lc.time)
         if lg.decode_ok:
             decoded += 1
-            np.testing.assert_allclose(gpu.last_decoded, gpu.last_full_grad,
+            np.testing.assert_allclose(gpu.last_decoded.cpu().numpy(),
+                                       gpu.last_full_grad.cpu().numpy(),
                                        rtol=1e-4, atol=1e-5)
     assert coded_reduce.launches == before + decoded
     assert all(p.device.type == "cuda" for p in tree_leaves(gpu.params))
@@ -86,3 +87,97 @@ def test_trainer_decodes_through_the_kernel(cuda_device, scheme):
     for pg, pc in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
         np.testing.assert_allclose(pg.cpu().numpy(), pc.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# flash attention: the kernel against its plain version, forward and
+# backward.  Both compute in float32 from the same inputs; float32 sums
+# in another order (rtol/atol 2e-5 forward, 1e-4 gradients), bfloat16
+# outputs round the same float32 values (2e-2, the reference's kernel
+# test tolerance).
+# --------------------------------------------------------------------- #
+def _attention_inputs(device, shape_q, shape_k, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, getattr(torch, dtype))
+    return draw(shape_q), draw(shape_k), draw(shape_k), draw(shape_q)
+
+
+def _fa_tol(dtype, grad):
+    if dtype == "bfloat16":
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=1e-4, atol=1e-4) if grad else dict(rtol=2e-5,
+                                                         atol=2e-5)
+
+
+@pytest.mark.parametrize("shape_q,shape_k", [
+    ((1, 128, 2, 1, 32), (1, 128, 2, 32)),
+    ((2, 256, 1, 1, 64), (2, 256, 1, 64)),
+    ((1, 128, 2, 1, 80), (1, 128, 2, 80)),
+    ((2, 128, 2, 3, 32), (2, 128, 2, 32)),         # GQA
+    ((1, 100, 2, 2, 16), (1, 100, 2, 16)),         # ragged tail
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_flash_attention_kernel_matches_plain_on_card(
+        cuda_device, shape_q, shape_k, dtype, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_fwd, flash_attention_fwd_ref)
+    q, k, v, do = _attention_inputs(cuda_device, shape_q, shape_k, dtype)
+    kw = dict(causal=causal, window=window, q_chunk=64, kv_chunk=64)
+    before = (flash_attention.fwd_launches, flash_attention.bwd_launches)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.fwd_launches, flash_attention.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    grads_ref = flash_attention_bwd_ref(q, k, v, out_ref, lse_ref, do, **kw)
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               out_ref.float().cpu().numpy(),
+                               **_fa_tol(dtype, False))
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for g, r in zip(grads, grads_ref):
+        assert g.dtype == r.dtype == q.dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(),
+                                   **_fa_tol(dtype, True))
+
+
+def test_transformer_trainer_launches_the_kernels(cuda_device):
+    """Coded training of a small transformer on the card: every epoch's
+    attention goes through the kernels, forward twice per layer and shard
+    under ``remat="full"`` (forward, then the recompute) and backward
+    once, and every decode through ``coded_reduce``."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.e2e import TINY
+
+    cfg = dataclasses.replace(TINY, remat="full")
+    spec = scenario_spec("bursty-stragglers")
+    tr = CodedTrainer(cfg, spec, "two-stage",
+                      SyntheticLMDataset(spec.K, 2, 64, cfg.vocab,
+                                         device=cuda_device),
+                      adamw(1e-3), device=cuda_device)
+    flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+    before = coded_reduce.launches
+    logs = tr.run(2)
+    K, L = spec.K, cfg.n_layers
+    assert flash_attention.fwd_launches == 2 * 2 * K * L
+    assert flash_attention.bwd_launches == 2 * K * L
+    assert coded_reduce.launches == before + sum(lg.decode_ok for lg in logs)
+    assert logs[-1].decode_ok
+    for lg in logs:
+        if lg.decode_ok:
+            assert np.isfinite(lg.loss)
+    np.testing.assert_allclose(tr.last_decoded.cpu().numpy(),
+                               tr.last_full_grad.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)

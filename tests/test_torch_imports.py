@@ -37,5 +37,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.core.lyapunov.scheduler",
                 "repro_torch.sim.cluster", "repro_torch.train.coded_trainer",
                 "repro_torch.models.mlp", "repro_torch.optim.optimizers",
-                "repro_torch.data.pipeline"):
+                "repro_torch.data.pipeline",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.models.common", "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.configs.base",
+                "repro_torch.configs.stablelm_1_6b",
+                "repro_torch.train.curves", "repro_torch.train.e2e"):
         assert mod in got["imported"]

@@ -60,7 +60,7 @@ def _pair(scheme, dims, n, *, optimizer="adamw", spec_over=None):
         params=jax.tree.map(jax.numpy.asarray, params),
         loss_fn=ref_mlp.mlp_loss)
     port = port_train.CodedTrainer(
-        spec_p, scheme,
+        None, spec_p, scheme,
         port_data.SyntheticClassificationDataset(6, n, dim, n_classes,
                                                  device="cpu"),
         make_opt(port_optim),
@@ -218,7 +218,7 @@ def test_trainer_rejects_mismatched_dataset():
     bad = port_data.SyntheticClassificationDataset(spec.K + 1, 4, 8, 2,
                                                    device="cpu")
     with pytest.raises(ValueError, match="partitions"):
-        port_train.CodedTrainer(spec, "two-stage", bad,
+        port_train.CodedTrainer(None, spec, "two-stage", bad,
                                 port_optim.adamw(1e-3),
                                 params=port_mlp.init_mlp(dims=(8, 2),
                                                          device="cpu"),
@@ -240,7 +240,7 @@ def test_phase_timer_sees_every_phase():
 
     spec = port_sim.scenario_spec(SCENARIO)
     tr = port_train.CodedTrainer(
-        spec, "two-stage",
+        None, spec, "two-stage",
         port_data.SyntheticClassificationDataset(6, 4, 8, 2, device="cpu"),
         port_optim.adamw(1e-3),
         params=port_mlp.init_mlp(torch.Generator().manual_seed(0),
