@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
               and on every payload shape of both paths; flash attention,
               forward and backward, on the reference's kernel-test cases,
               a GQA case, ragged sequences and the transformer path's
-              shape, each with its stated tolerance;
+              shape; the WKV recurrence on the reference's kernel-test
+              cases, bf16 inputs, a ragged sequence, the decays where the
+              reference's chunked form fails, w -> 1 and the serve path's
+              shape; each with its stated tolerance;
 4. mlp     -- the first path: ``CodedTrainer`` with the paper's MLP
               (784, 256, 128, 10) on ``bursty-stragglers``, 10,000 examples
               per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card,
@@ -31,9 +34,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. tiny    -- ``repro_torch.train.e2e`` at its TINY config on the card and
               on the CPU: equal decode outcomes and simulated times, losses
               within rtol 1e-3, and the reference's speedups;
-7. times   -- each kernel, its plain version and one library call, timed
+7. serve   -- the third path: ``repro_torch.launch.serve.serve`` with
+              rwkv6-1.6b at full size (24 layers, bf16 compute): Lyapunov
+              admission of 6 clients over 10 slots, batched prefill of
+              1,024-token prompts through the WKV kernel, 16 greedy decode
+              steps.  The WKV kernel must launch 24 times per prefill.
+              Then a teacher-forced check of decode against a fresh forward
+              (bf16 and float32), the model on the card against the CPU at
+              REDUCED, and the REDUCED serve loop on the card and the CPU
+              (equal admissions and served counts);
+8. times   -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
-              and the per-epoch phase split of both paths.
+              the per-epoch phase split of the training paths and a
+              profile of one prefill and its decode steps.
 
 Launch counts are zeroed just before each path and read just after it.
 The line before the last holds one JSON object with every kernel's
@@ -72,6 +85,11 @@ LM_SEQ = 4096
 LM_EPOCHS = 2
 #: the attention shape of the transformer path: (B, S, KV, G, D)
 FA_PATH = (1, LM_SEQ, 32, 1, 64)
+# the serve path: rwkv6-1.6b at full size, the reference's arrival mix
+SERVE = dict(clients=6, slots=10, prompt_len=1024, gen_len=16, batch=4,
+             V=30.0, seed=0)
+#: the WKV shape of the serve path's prefill: (B, H, S, K, V)
+WKV_PATH = (4, 32, 1024, 64, 64)
 
 
 def log(msg: str) -> None:
@@ -104,22 +122,26 @@ def check_close(name, got, want, rtol, atol) -> float:
 def set_counts(counts: dict) -> None:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_wkv import wkv
     coded_reduce.launches = counts["coded_reduce"]
     flash_attention.fwd_launches = counts["flash_attention_fwd"]
     flash_attention.bwd_launches = counts["flash_attention_bwd"]
+    wkv.launches = counts["rwkv6_wkv"]
 
 
 def reset_counts() -> None:
     set_counts({"coded_reduce": 0, "flash_attention_fwd": 0,
-                "flash_attention_bwd": 0})
+                "flash_attention_bwd": 0, "rwkv6_wkv": 0})
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_wkv import wkv
     return {"coded_reduce": coded_reduce.launches,
             "flash_attention_fwd": flash_attention.fwd_launches,
-            "flash_attention_bwd": flash_attention.bwd_launches}
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "rwkv6_wkv": wkv.launches}
 
 
 # --------------------------------------------------------------------- #
@@ -321,6 +343,87 @@ def flash_kernel_phase() -> dict:
             path_errs = {"fwd": e_fwd, "bwd": e_bwd}
     torch.cuda.empty_cache()
     return path_errs
+
+
+def _wkv_inputs(seed, shape, dtype, w):
+    """r, k, v, u normal in ``dtype`` and w float32 on the card, drawn with
+    numpy; ``w`` is a constant or ``"uniform"`` (the reference's kernel
+    tests: U(0.3, 0.99)) or ``"path"`` (exp(-exp(U(-8, 2))), the whole
+    range ``_rwkv_decay`` gives)."""
+    import numpy as np
+    import torch
+    B, H, S, K, V = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*sh):
+        return torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)).to("cuda", dtype)
+    r, k, v = draw(B, H, S, K), draw(B, H, S, K), draw(B, H, S, V)
+    if w == "uniform":
+        wv = rng.uniform(0.3, 0.99, (B, H, S, K))
+    elif w == "path":
+        wv = np.exp(-np.exp(rng.uniform(-8.0, 2.0, (B, H, S, K))))
+    else:
+        wv = np.full((B, H, S, K), w)
+    return r, k, v, torch.from_numpy(wv.astype(np.float32)).cuda(), \
+        draw(H, K)
+
+
+def wkv_kernel_phase() -> float:
+    """The WKV kernel against its plain version (the sequential
+    recurrence); returns the largest output error at the path's shape.
+
+    Tolerances.  Float32: the reference's kernel-test bound, rtol 2e-4 and
+    atol 2e-4·max(1, max|out|) -- both sum K products per step in float32
+    in other orders, and as w -> 1 the outputs grow with S.  bfloat16
+    inputs: the same float32 arithmetic on the same rounded inputs, so the
+    bf16 outputs differ by at most one rounding step (rtol 1e-2, atol 1e-2)
+    and the float32 state is held as in float32."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
+    path_err = 0.0
+
+    def case(tag, shape, dtype, w):
+        nonlocal path_err
+        r, k, v, wv, u = _wkv_inputs(0, shape, dtype, w)
+        out, s_last = wkv(r, k, v, wv, u)
+        torch.cuda.synchronize()
+        out_r, s_r = wkv_ref(r, k, v, wv, u)
+        if out.dtype != dtype or s_last.dtype != torch.float32:
+            raise AssertionError(f"{tag}: {out.dtype}, {s_last.dtype}")
+        if dtype == torch.float32:
+            tol = (2e-4, 2e-4 * max(1.0, float(out_r.abs().max())))
+        else:
+            tol = (1e-2, 1e-2)
+        e_out = check_close(f"wkv {tag} out", out, out_r, *tol)
+        e_s = check_close(f"wkv {tag} S_last", s_last, s_r, 2e-4,
+                          2e-4 * max(1.0, float(s_r.abs().max())))
+        log(f"[kernels] wkv {tag} {str(dtype)[6:]} w={w}: max abs err out "
+            f"{e_out:.3e} (rtol {tol[0]}, atol {tol[1]:.3g}; max|out| "
+            f"{float(out_r.float().abs().max()):.4g}), S_last {e_s:.3e}")
+        if shape == WKV_PATH:
+            path_err = max(path_err, e_out)
+
+    # the reference's kernel-test cases (tests/test_kernels.py)
+    for shape in [(1, 2, 64, 16, 16), (2, 1, 128, 32, 32),
+                  (1, 1, 96, 64, 64)]:
+        case(f"{shape}", shape, torch.float32, "uniform")
+    case("(1, 2, 64, 16, 16) bf16 inputs", (1, 2, 64, 16, 16),
+         torch.bfloat16, "uniform")
+    case("ragged (1, 2, 1000, 64, 64)", (1, 2, 1000, 64, 64), torch.float32,
+         "uniform")
+    case("K != V (2, 3, 77, 16, 64)", (2, 3, 77, 16, 64), torch.float32,
+         "uniform")
+    # where the reference's chunked form is off (its exponent clamp at 30)
+    for w in (math.exp(-1.0), math.exp(-math.e ** 2)):
+        case("(1, 2, 128, 64, 64)", (1, 2, 128, 64, 64), torch.float32, w)
+    case("w -> 1 (1, 2, 1024, 64, 64)", (1, 2, 1024, 64, 64), torch.float32,
+         math.exp(-math.exp(-8.0)))
+    for dtype in (torch.float32, torch.bfloat16):
+        case(f"path {WKV_PATH}", WKV_PATH, dtype, "path")
+    torch.cuda.empty_cache()
+    return path_err
 
 
 # --------------------------------------------------------------------- #
@@ -527,7 +630,7 @@ def lm_phase():
     remat = 2 if cfg.remat in ("full", "dots") else 1
     want = {"coded_reduce": n_decoded,
             "flash_attention_fwd": remat * K * L * n_epochs,
-            "flash_attention_bwd": K * L * n_epochs}
+            "flash_attention_bwd": K * L * n_epochs, "rwkv6_wkv": 0}
     log(f"[lm] {len(SCHEMES)} schemes x {LM_EPOCHS} epochs on the card in "
         f"{wall:.2f} s; {n_decoded} decoded; launches {launches} (the path "
         f"implies {want}); decoded vs full-batch max abs err "
@@ -588,6 +691,211 @@ def tiny_phase():
         f"{t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s; equal "
         f"decode outcomes and simulated times; two-stage "
         f"{speedups[0]:.4f}x vs uncoded, {speedups[1]:.4f}x vs cyclic")
+
+
+def serve_config(**over):
+    from repro_torch.configs.rwkv6_1_6b import FULL
+    return dataclasses.replace(FULL, **over)
+
+
+def _draw_zero_init(params, gen):
+    """Draw, in place, the rwkv leaves the reference initialises to zero
+    (token-shift mixes, decay bias and LoRA output, bonus, head norm), as
+    the CPU tests do: at zero the token shift does nothing and every decay
+    is e^-1, so an off-by-one state would go unseen."""
+    for group in params["groups"]:
+        for unit in group.values():
+            mix, ffn = unit["mixer"], unit["ffn"]
+            mix["mu"].uniform_(0.0, 1.0, generator=gen)
+            ffn["mu"].uniform_(0.0, 1.0, generator=gen)
+            mix["w0"].uniform_(-1.0, 0.5, generator=gen)
+            mix["w_lora_b"].normal_(0.0, 0.1, generator=gen)
+            mix["u"].normal_(0.0, 0.5, generator=gen)
+            mix["gn"].normal_(0.0, 0.1, generator=gen)
+    return params
+
+
+def serve_params(cfg, device):
+    """Random weights of ``cfg`` from seed 0 on ``device``."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device=device).manual_seed(0)
+    return _draw_zero_init(init_params(cfg, gen, device=device), gen)
+
+
+def forward_logits(params, cfg, tokens, start):
+    """Logits of a fresh forward over ``tokens`` (1, n) at positions
+    ``start`` onwards, float32."""
+    import torch
+
+    from repro_torch.models.transformer import forward
+    with torch.no_grad():
+        x, _ = forward(params, {"tokens": tokens}, cfg)
+        head = params["lm_head"].to(getattr(torch, cfg.compute_dtype))
+        return (x[0, start:] @ head).float()
+
+
+def teacher_forced(params, cfg, prompt, gen_len):
+    """Greedy decode of ``gen_len`` tokens after ``prompt`` (1, S), then
+    one forward over the prompt and the generated tokens.  Returns the
+    logits of prefill's last position and of every decode step, the
+    forward's logits at the same positions, each (gen_len + 1, V), and the
+    tokens the forward saw."""
+    import torch
+
+    from repro_torch.models.transformer import (decode_step, pad_cache,
+                                                prefill)
+    with torch.no_grad():
+        last, caches, pos = prefill(params, {"tokens": prompt}, cfg)
+        caches = pad_cache(caches, cfg, extra=gen_len)
+        logits, toks = [last], [last.argmax(-1)[:, None]]
+        for i in range(gen_len):
+            lg, caches = decode_step(params, toks[-1], caches, pos + i, cfg)
+            logits.append(lg)
+            toks.append(lg.argmax(-1)[:, None])
+    full = torch.cat([prompt] + toks[:-1], dim=1)
+    return (torch.cat(logits, dim=0),
+            forward_logits(params, cfg, full, prompt.shape[1] - 1), full)
+
+
+#: decode logits vs a fresh forward: (rtol, atol as a fraction of the
+#: largest |logit|).  float32: only summation order differs.  bfloat16:
+#: the two routes round the residual stream to bf16 after each of 48
+#: sublayers at other places (a (B, 1, d) step against a (1, S, d) pass),
+#: and bf16 keeps 8 bits; the first measurement gave a largest difference
+#: of 6 % of the largest logit and 5.8 % in norm, so the bound is 10 %
+#: elementwise and in norm.
+TF_TOL = {"bfloat16": (0.1, 0.1), "float32": (1e-3, 2e-4)}
+
+
+def serve_phase() -> dict:
+    """The serve path at full size, its checks, and the REDUCED twins.
+    Returns the path's launches, its timings, the parameter count and the
+    peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.rwkv6_1_6b import REDUCED
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = serve_config()
+    params = serve_params(cfg, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"compute {cfg.compute_dtype}; {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB float32); serve {SERVE}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path: counts zeroed just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve(cfg, params, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = {"coded_reduce": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0,
+            "rwkv6_wkv": cfg.n_layers * res["prefills"]}
+    pre = np.asarray(res["prefill_ms"])
+    dec = np.asarray(res["decode_ms"]) / SERVE["gen_len"]
+    log(f"[serve] {SERVE['slots']} slots in {wall:.2f} s: {res['prefills']} "
+        f"prefills, served {np.round(res['served'], 2).tolist()}, Jain "
+        f"{res['jain']:.4f}, admitted per slot "
+        f"{res['admitted'].sum(1).tolist()}; launches {launches} (the path "
+        f"implies {want}); peak device memory {peak} bytes "
+        f"({peak / 1e9:.2f} GB)")
+    log(f"[serve] ms per prefill (batch <= {SERVE['batch']} x "
+        f"{SERVE['prompt_len']} tokens): median {np.median(pre):.2f}, min "
+        f"{pre.min():.2f}, max {pre.max():.2f}; ms per decode step: median "
+        f"{np.median(dec):.3f}, min {dec.min():.3f}, max {dec.max():.3f}; "
+        f"schedule ms per slot median {np.median(res['schedule_ms']):.3f}")
+    if res["prefills"] == 0 or launches != want:
+        raise AssertionError(f"launch counts {launches}, the path implies "
+                             f"{want}")
+    if not 0.0 < res["jain"] <= 1.0 or res["served"].sum() <= 0:
+        raise AssertionError(f"served {res['served']}, Jain {res['jain']}")
+
+    # teacher-forced: decode == a fresh forward, bf16 and float32
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, SERVE["prompt_len"]))).cuda()
+    S = SERVE["prompt_len"]
+    for dtype in ("bfloat16", "float32"):
+        c = serve_config(compute_dtype=dtype)
+        got, ref, full = teacher_forced(params, c, prompt, SERVE["gen_len"])
+        rtol, frac = TF_TOL[dtype]
+        atol = frac * float(ref.abs().max())
+        rel = float((got - ref).norm() / ref.norm())
+        err = float((got - ref).abs().max())
+        same = (got.argmax(-1) == ref.argmax(-1)).tolist()
+        log(f"[serve] teacher-forced {dtype}: {got.shape[0]} positions of "
+            f"{got.shape[1]} logits, max abs err {err:.4g} (rtol {rtol}, "
+            f"atol {atol:.3g} = {frac} x max|logit|), norm rel err "
+            f"{rel:.3e} (bound {rtol}); argmax equal at {sum(same)} of "
+            f"{len(same)}")
+        check_close(f"teacher-forced {dtype}", got, ref, rtol, atol)
+        if rel > rtol:
+            raise AssertionError(f"teacher-forced {dtype}: norm rel err "
+                                 f"{rel}")
+        if dtype == "float32" and not all(same):
+            raise AssertionError(f"float32 greedy choices differ: {same}")
+        if dtype == "bfloat16":
+            # both bf16 routes against float32 on the same tokens
+            exact = forward_logits(params, serve_config(
+                compute_dtype="float32"), full, S - 1)
+            log(f"[serve] bf16 vs float32 on the same tokens, norm rel err: "
+                f"decode {float((got - exact).norm() / exact.norm()):.3e}, "
+                f"forward {float((ref - exact).norm() / exact.norm()):.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # REDUCED, float32: the model on the card (WKV kernel) vs the CPU
+    red = dataclasses.replace(REDUCED, compute_dtype="float32")
+    p_cpu = serve_params(red, "cpu")
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, red.vocab, (2, 104)))
+    out = []
+    for p, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        last, caches, pos = prefill(p, {"tokens": toks[:, :100].to(dev)},
+                                    red)
+        steps = [last]
+        for i in range(4):
+            lg, caches = decode_step(p, toks[:, 100 + i:101 + i].to(dev),
+                                     caches, pos + i, red)
+            steps.append(lg)
+        out.append((torch.stack(steps).cpu(), caches[0]["l0"]["mix"]["S"]
+                    .cpu()))
+    e_l = check_close("REDUCED logits card vs CPU", out[0][0], out[1][0],
+                      1e-4, 1e-4)
+    e_s = check_close("REDUCED WKV state card vs CPU", out[0][1], out[1][1],
+                      1e-4, 1e-4 * max(1.0, float(out[1][1].abs().max())))
+    log(f"[serve] REDUCED float32, prefill 100 tokens + 4 decode steps, card"
+        f" vs CPU: logits max abs err {e_l:.3e}, WKV state {e_s:.3e} "
+        f"(rtol 1e-4)")
+
+    # REDUCED serve loop (its defaults, bf16) on the card and on the CPU
+    red = REDUCED
+    t1 = time.perf_counter()
+    card = serve(red, serve_params(red, "cuda"), device="cuda")
+    t2 = time.perf_counter()
+    cpu = serve(red, serve_params(red, "cpu"), device="cpu")
+    for key in ("admitted", "scheduled", "served"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"REDUCED serve {key}: card {card[key]}, "
+                                 f"CPU {cpu[key]}")
+    log(f"[serve] REDUCED serve loop (40 slots): card {t2 - t1:.1f} s, CPU "
+        f"{time.perf_counter() - t2:.1f} s; equal admissions, schedules and "
+        f"served counts {np.round(card['served'], 2).tolist()}")
+    return {"launches": launches, "res": res, "peak": peak,
+            "n_params": n_params}
 
 
 # --------------------------------------------------------------------- #
@@ -718,6 +1026,126 @@ def flash_times(dtype) -> dict:
     return t
 
 
+def wkv_times() -> dict:
+    """The WKV kernel at the serve path's shape, beside its plain version
+    and the bound.  No single PyTorch call computes the recurrence, so
+    there is no library time."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
+    B, H, S, K, V = WKV_PATH
+    r, k, v, w, u = _wkv_inputs(4, WKV_PATH, torch.bfloat16, "path")
+    counts = read_counts()
+    t = {"ms": time_ms(lambda: wkv(r, k, v, w, u), 30),
+         "warm_ms": time_ms(lambda: wkv(r, k, v, w, u), 30, cold=False),
+         "plain_ms": time_ms(lambda: wkv_ref(r, k, v, w, u), 3)}
+    set_counts(counts)                   # these launches are not a path's
+    elt = r.element_size()
+    # each input read once, each output written once
+    n_bytes = (2 * B * H * S * K + B * H * S * V + H * K) * elt + \
+        4 * B * H * S * K + B * H * S * V * elt + 4 * B * H * K * V
+    # per step and head: r·S (2KV) and diag(w)·S + k⊗v (2KV); the bonus
+    # (Σ r u k)·v is O(K + V)
+    flops = B * H * S * (4 * K * V + 3 * K + 2 * V)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes=n_bytes, flops=flops)
+    log(f"[times] wkv {WKV_PATH} bf16 r/k/v/u, f32 w: kernel "
+        f"{t['ms']:.5f} ms (inputs in L2: {t['warm_ms']:.5f}), plain "
+        f"{t['plain_ms']:.3f} ms, library none; bound {t['bound_ms']:.5f} ms "
+        f"by {t['bound_by']} ({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 "
+        f"TB/s; {flops / 1e9:.3f} GFLOP float32 -> {t_ops:.5f} ms at 67 "
+        f"TFLOP/s) -> {t['bound_ms'] / t['ms']:.1%} of the bound")
+    del r, k, v, w, u
+    torch.cuda.empty_cache()
+    return t
+
+
+def serve_profile(n_decode=4) -> None:
+    """One prefill of the serve path's batch (4 x 1,024 tokens), then a
+    few decode steps, each under ``torch.profiler``: device time by kernel
+    family and the share of the window in which the card ran no kernel
+    (an upper bound: the profiler's own host cost is inside the window)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import (decode_step, model_specs,
+                                                pad_cache, prefill)
+    cfg = serve_config()
+    params = serve_params(cfg, "cuda")
+    # weights of the layers' matrix products (w*, not the mixes mu)
+    mm_params = sum(math.prod(sp.shape) for unit in model_specs(cfg)[
+        "groups"][0].values() for part in unit.values()
+        for key, sp in part.items() if key.startswith("w") and
+        len(sp.shape) == 3)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]))).cuda()
+    counts = read_counts()
+
+    def prefill_part():
+        return prefill(params, {"tokens": toks}, cfg)
+
+    def decode_part(last, caches, pos):
+        caches = pad_cache(caches, cfg, extra=n_decode)
+        tok = last.argmax(-1)[:, None]
+        for i in range(n_decode):
+            lg, caches = decode_step(params, tok, caches, pos + i, cfg)
+            tok = lg.argmax(-1)[:, None]
+
+    def profiled(fn, *args):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return out, prof, wall
+
+    decode_part(*prefill_part())                     # warm-up
+    torch.cuda.synchronize()
+    state, prof_pre, wall_pre = profiled(prefill_part)
+    _, prof_dec, wall_dec = profiled(decode_part, *state)
+    for name, what, prof, wall in (
+            ("prefill", f"batch {SERVE['batch']} x {SERVE['prompt_len']} "
+             f"tokens", prof_pre, wall_pre),
+            ("decode", f"{n_decode} steps at batch {SERVE['batch']}",
+             prof_dec, wall_dec)):
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            log(f"[times] serve {name} profile ({what}): {wall:.2f} ms host "
+                f"time; no device events recorded, so device time by kernel "
+                f"and the idle share are not measured")
+            continue
+        fam = {"wkv": 0.0, "matmul": 0.0, "other": 0.0}
+        for e in kernels:
+            low = e.name.lower()
+            key = ("wkv" if "wkv_fwd" in e.name else
+                   "matmul" if any(w in low for w in (
+                       "gemm", "xmma", "cutlass", "cublas", "nvjet"))
+                   else "other")
+            fam[key] += e.time_range.elapsed_us() / 1e3
+        busy = sum(fam.values())
+        rate = ""
+        if name == "prefill":
+            flops = 2 * SERVE["batch"] * SERVE["prompt_len"] * mm_params
+            rate = (f"; the layers' matrix products are {flops / 1e12:.2f} "
+                    f"TFLOP -> {flops / fam['matmul'] / 1e9:.1f} TFLOP/s "
+                    f"over the matmul kernels' time")
+        log(f"[times] serve {name} profile ({what}): {wall:.2f} ms host "
+            f"time, {busy:.2f} ms of kernels ({len(kernels)} launches) -> "
+            f"the card idle {max(0.0, 1 - busy / wall):.1%}; "
+            + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
+                        for k, v in fam.items()) + rate)
+    set_counts(counts)                   # these launches are not a path's
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def slot_round_trip_ms(device, reps=200) -> float:
     """Host time of the device part of one co-sim slot, as
     ``EdgeCluster._run_comm`` does it: the observation rows to ``device``,
@@ -841,8 +1269,10 @@ def lm_shard_profile():
     torch.cuda.empty_cache()
 
 
-def times_phase(mlp, lm, errs, fa_errs) -> list:
+def times_phase(mlp, lm, serve_out, errs, fa_errs, wkv_err) -> list:
     from collections import Counter
+
+    import numpy as np
 
     from repro_torch.data.pipeline import (SyntheticClassificationDataset,
                                            SyntheticLMDataset)
@@ -883,6 +1313,12 @@ def times_phase(mlp, lm, errs, fa_errs) -> list:
         f"{slot_round_trip_ms('cpu'):.4f} ms on the CPU")
     log(f"[times] lm peak device memory over the path: {peak} bytes "
         f"({peak / 1e9:.2f} GB)")
+    wk = wkv_times()
+    serve_profile()
+    n_pre = serve_out["res"]["prefills"]
+    log(f"[times] serve WKV per prefill, from the kernel's timed cost x its "
+        f"launches: {serve_out['launches']['rwkv6_wkv'] * wk['ms'] / n_pre:.3f}"
+        f" ms of {float(np.median(serve_out['res']['prefill_ms'])):.2f} ms")
 
     src = "src/repro_torch/kernels"
     return [{
@@ -910,7 +1346,14 @@ def times_phase(mlp, lm, errs, fa_errs) -> list:
         "max_abs_err": fa_errs["bwd"],
         "ms": bf["bwd_ms"], "plain_ms": bf["plain_bwd_ms"],
         "bound_ms": bf["bwd_bound_ms"], "bound_by": bf["bwd_bound_by"],
-        "library_ms": bf["sdpa_bwd_ms"]}]
+        "library_ms": bf["sdpa_bwd_ms"]}, {
+        "name": "rwkv6_wkv", "route": "cuda",
+        "source": f"{src}/rwkv6_wkv/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76",
+        "launches": serve_out["launches"]["rwkv6_wkv"],
+        "max_abs_err": wkv_err, "ms": wk["ms"], "plain_ms": wk["plain_ms"],
+        "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+        "library_ms": None}]
 
 
 def main() -> int:
@@ -919,10 +1362,12 @@ def main() -> int:
     build_phase()
     errs = kernel_phase()
     fa_errs = flash_kernel_phase()
+    wkv_err = wkv_kernel_phase()
     mlp = mlp_phase()
     lm = lm_phase()
     tiny_phase()
-    kernels = times_phase(mlp, lm, errs, fa_errs)
+    served = serve_phase()
+    kernels = times_phase(mlp, lm, served, errs, fa_errs, wkv_err)
     import torch
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)

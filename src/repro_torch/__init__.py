@@ -3,7 +3,8 @@
 A second package beside ``repro`` (the JAX reference), laid out like it:
 ``core`` (coding control plane, runtime, Lyapunov scheduler), ``sim``
 (co-simulated edge cluster), ``train`` (the coded-training bridge),
-``models``, ``configs``, ``optim``, ``data`` and ``kernels``
+``models``, ``configs``, ``optim``, ``data``, ``launch`` (the serving
+loop) and ``kernels``
 (hand-written CUDA for Hopper, each beside its plain PyTorch version).  It imports neither
 ``jax`` nor ``repro``.  Entry points run on the card unless the caller
 passes ``device="cpu"``.

@@ -25,11 +25,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .queues import QueueState, SystemParams, step_queues
 
-__all__ = ["Observation", "Decisions", "schedule_slot"]
+__all__ = ["Observation", "Decisions", "jain_index", "schedule_slot"]
 
 _LN2 = 0.6931471805599453
 
@@ -125,3 +126,26 @@ def schedule_slot(state: QueueState, params: SystemParams, obs: Observation,
                             new_cycles=obs.new_cycles)
     return new_state, Decisions(y=y, d=d, nu=nu, c=c, e_store=e_store,
                                 e_up=e_up, e_com=e_com, f=f)
+
+
+def jain_index(x) -> float:
+    """Jain's fairness index ``(Σx)² / (n·Σx²)`` of a non-negative share
+    vector (a sequence, numpy array or tensor), on the host in float64.
+
+    The reference's conventions (``repro.telemetry.metrics.jain_index``):
+    the value lies in ``(0, 1]`` when some share is positive, the all-zero
+    or empty allocation gives 1.0, negative shares raise.  Unlike the
+    reference, the shares are divided by the largest one before squaring,
+    so shares whose squares underflow still give the right value (the
+    reference returns NaN for ``[1e-200]``).
+    """
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x, np.float64).ravel()
+    if x.size and (x < 0).any():
+        raise ValueError("jain_index wants non-negative shares")
+    top = x.max() if x.size else 0.0
+    if top <= 0.0:
+        return 1.0
+    y = x / top
+    return float(y.sum() ** 2 / (x.size * np.square(y).sum()))

@@ -1,0 +1,102 @@
+"""Wrapper of the RWKV6 WKV kernel: the exact recurrence, forward only.
+
+``wkv(r, k, v, w, u)`` launches the hand-written kernel of
+``csrc/rwkv6_wkv.cu`` (built with nvcc at first use) on the current stream
+for CUDA tensors, or raises; for CPU tensors it computes the plain version
+(:func:`~repro_torch.kernels.rwkv6_wkv.ref.wkv_ref`).  ``wkv.launches``
+counts the kernel's launches, not the CPU path's calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from .ref import wkv_ref
+
+__all__ = ["HEAD_DIMS", "SOURCE", "wkv", "wkv_ref"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
+
+#: The head widths (K and V) the kernel is built for.
+HEAD_DIMS = (16, 32, 64)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load_library(str(SOURCE))
+    lib.wkv_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_P]
+    lib.wkv_fwd.restype = _I
+    lib.wkv_error_string.argtypes = [_I]
+    lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(r, k, v, w, u) -> None:
+    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape or \
+            v.dim() != 4 or v.shape[:3] != r.shape[:3] or \
+            tuple(u.shape) != (r.shape[1], r.shape[3]):
+        raise ValueError(f"want r, k, w (B,H,S,K), v (B,H,S,V) and u (H,K), "
+                         f"got r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, w {tuple(w.shape)}, u "
+                         f"{tuple(u.shape)}")
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, u)):
+        raise TypeError(f"r, k, v, u must share float32 or bfloat16, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}, {u.dtype}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"w must be float32, got {w.dtype}")
+    if any(t.device != r.device for t in (k, v, w, u)):
+        raise ValueError("r, k, v, w, u must lie on one device")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv runs on cuda or cpu, not {r.device}")
+    if not all(t.is_contiguous() for t in (r, k, v, w, u)):
+        raise ValueError("r, k, v, w and u must be contiguous")
+    if r.shape[2] == 0:
+        raise ValueError("empty sequence")
+    K, V = r.shape[3], v.shape[3]
+    if r.device.type == "cuda" and (K not in HEAD_DIMS or V not in HEAD_DIMS):
+        raise ValueError(f"the kernel takes K and V in {HEAD_DIMS}, not "
+                         f"K={K}, V={V}")
+
+
+def wkv(r, k, v, w, u, *, chunk: int = 32):
+    """r, k, w: (B, H, S, K); v: (B, H, S, V); u: (H, K); r, k, v, u one
+    type (float32 or bfloat16), w float32, all contiguous, on one device.
+    Returns ``(out (B, H, S, V) in r's type, S_last (B, H, K, V) float32)``
+    of the recurrence from a zero state.  ``chunk`` is the TPU kernel's
+    tiling, kept for its signature: the result does not depend on it.  On
+    the card the call is forward-only and refuses inputs that need a
+    gradient; on the CPU the plain recurrence is differentiable."""
+    _check(r, k, v, w, u)
+    if r.device.type == "cpu":
+        return wkv_ref(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        raise NotImplementedError(
+            "the WKV kernel is forward-only: training through it needs a "
+            "backward kernel, which the reference lacks too (ROADMAP.md)")
+    B, H, S, K = r.shape
+    V = v.shape[3]
+    out = torch.empty((B, H, S, V), dtype=r.dtype, device=r.device)
+    s_last = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkv_fwd(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                          out.data_ptr(), s_last.data_ptr(), B, H, S, K, V,
+                          stream)
+    if err != 0:
+        raise RuntimeError(f"wkv launch failed: CUDA error {err} "
+                           f"({lib.wkv_error_string(err).decode()})")
+    wkv.launches += 1
+    return out, s_last
+
+
+wkv.launches = 0

@@ -1,13 +1,16 @@
-"""Decoder transformer, dense path, for coded training.
+"""Decoder transformer: dense and RWKV6 layers, for training and serving.
 
 The torch counterpart of ``repro.models.transformer`` for configs whose
-layers are attention (``attn``/``local``) with a dense or gated FFN and
-token inputs, such as ``stablelm-1.6b``.  The parameter tree is the
+layers are attention (``attn``/``local``) with a dense or gated FFN, or
+RWKV6 time mix (``rwkv``) with its channel mix, on token inputs: such as
+``stablelm-1.6b`` and ``rwkv6-1.6b``.  The parameter tree is the
 reference's: ``{"embed", "groups", "final_norm", "lm_head"}``, where
 ``"groups"`` is a list with one dict per repeating layer unit, each leaf
 stacked on a leading layer axis; so :func:`~repro_torch.train.flatten_grads`
 flattens a gradient in ``ravel_pytree``'s order and a decoded vector
-compares with the reference's index by index.
+compares with the reference's index by index.  Decode caches have the
+reference's layout too (one dict per group, leaves stacked on the layer
+axis).
 
 Layers run in a Python loop over the stacked axis (the reference scans
 them).  ``remat="full"`` wraps each layer unit in ``torch.utils.checkpoint``
@@ -21,11 +24,22 @@ the backward.  The reference's sharding constraints and unroll switch
 (``models/settings.py``) are identities on one card and have no
 counterpart here.
 
-Not here yet (each raises ``NotImplementedError``): the ``rec`` and
-``rwkv`` mixers, mixture-of-experts FFNs and the audio/vision frontends
-(ROADMAP.md, queue 1: "rglru and WKV kernels with their models"), and the
-serving entry points ``prefill``/``decode_step``/``init_cache`` (ROADMAP.md,
-queue 1: the serving slice).
+The RWKV6 time mix runs the WKV recurrence through
+``repro_torch.kernels.rwkv6_wkv.wkv``: the CUDA kernel on the card, the
+plain sequential recurrence on the CPU.  The reference's ``wkv_chunked``
+is not ported (``models/rwkv6.py`` says why), so the port's prefill is
+exact where the reference's is not.  The kernel is forward-only:
+training an ``rwkv`` config on the card raises (the reference trains it
+through ``wkv_chunked``, whose backward has no kernel).
+
+Serving: ``prefill`` (a forward that collects the caches), ``pad_cache``,
+``init_cache`` and ``decode_step`` (one token, attention over the k/v
+cache in plain PyTorch as the reference's ``decode_attention`` is plain
+jnp; RWKV6 through ``wkv_step``).
+
+Not here yet (each raises ``NotImplementedError``): the ``rec`` mixer,
+mixture-of-experts FFNs and the audio/vision frontends (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -39,18 +53,20 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import flash_attention
+from repro_torch.kernels.rwkv6_wkv import wkv
+from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.common import (Spec, activation, apply_rope,
                                        init_from_specs, layer_norm, rms_norm,
                                        rope, spec_leaves,
                                        spec_template)
+from repro_torch.models.rwkv6 import wkv_step
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
 __all__ = ["GroupDef", "group_layout", "model_specs", "init_params",
-           "params_from_numpy", "forward", "loss_fn", "chunked_ce"]
+           "params_from_numpy", "forward", "loss_fn", "chunked_ce",
+           "prefill", "decode_step", "init_cache", "pad_cache"]
 
-_LATER = ("not ported yet: see ROADMAP.md, queue 1, \"rglru and WKV "
-          "kernels with their models\"")
+_LATER = "not ported yet: see ROADMAP.md, queue 1"
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -61,9 +77,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(f"the {cfg.frontend} frontend is {_LATER}")
     for mixer, ffn in cfg.layer_kinds():
-        if mixer not in ("attn", "local"):
+        if mixer not in ("attn", "local", "rwkv"):
             raise NotImplementedError(f"the {mixer!r} mixer is {_LATER}")
-        if ffn != "dense":
+        if ffn != "dense" and mixer != "rwkv":
             raise NotImplementedError(f"the {ffn!r} FFN is {_LATER}")
 
 
@@ -121,8 +137,42 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     return p
 
 
-def _ffn_specs(cfg: ModelConfig, ffn: str) -> dict:
-    d, f = cfg.d_model, cfg.ffn_width(ffn)
+def _rwkv_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    H, hd, r = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.lora_rank
+    return {
+        "ln": _norm_spec(cfg),
+        "mu": Spec((5, d), (None, None), "zeros"),      # r,k,v,w,g lerps
+        "w0": Spec((d,), (None,), "zeros"),
+        "w_lora_a": Spec((d, r), ("embed", None)),
+        "w_lora_b": Spec((r, d), (None, "embed"), "zeros"),
+        "wr": Spec((d, d), ("embed", "qkv")),
+        "wk": Spec((d, d), ("embed", "qkv")),
+        "wv": Spec((d, d), ("embed", "qkv")),
+        "wg": Spec((d, d), ("embed", "qkv")),
+        "u": Spec((H, hd), ("heads", None), "zeros"),
+        "gn": Spec((H, hd), ("heads", None), "zeros"),
+        "wo": Spec((d, d), ("qkv", "embed"), "normal",
+                   1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _mixer_specs(cfg: ModelConfig, mixer: str) -> dict:
+    return _rwkv_specs(cfg) if mixer == "rwkv" else _attn_specs(cfg)
+
+
+def _ffn_specs(cfg: ModelConfig, ffn: str, mixer: str) -> dict:
+    d = cfg.d_model
+    if mixer == "rwkv":                       # rwkv channel mix
+        return {
+            "ln": _norm_spec(cfg),
+            "mu": Spec((2, d), (None, None), "zeros"),      # k, r lerps
+            "wk": Spec((d, cfg.d_ff), ("embed", "mlp")),
+            "wv": Spec((cfg.d_ff, d), ("mlp", "embed"), "normal",
+                       1.0 / math.sqrt(2 * cfg.n_layers)),
+            "wr": Spec((d, d), ("embed", "qkv")),
+        }
+    f = cfg.ffn_width(ffn)
     p = {"ln": _norm_spec(cfg),
          "wu": Spec((d, f), ("embed", "mlp")),
          "wd": Spec((f, d), ("mlp", "embed"), "normal",
@@ -147,9 +197,9 @@ def model_specs(cfg: ModelConfig) -> dict:
     specs: dict = {"embed": Spec((V, d), ("vocab", "embed"), "embed")}
     groups = []
     for g in group_layout(cfg):
-        unit = {f"l{j}": {"mixer": _attn_specs(cfg),
-                          "ffn": _ffn_specs(cfg, ffn)}
-                for j, (_, ffn) in enumerate(g.kinds)}
+        unit = {f"l{j}": {"mixer": _mixer_specs(cfg, mixer),
+                          "ffn": _ffn_specs(cfg, ffn, mixer)}
+                for j, (mixer, ffn) in enumerate(g.kinds)}
         groups.append(_stack_specs(unit, g.n_repeat))
     specs["groups"] = groups
     specs["final_norm"] = _norm_spec(cfg)
@@ -228,7 +278,109 @@ def _attn_train(x, p, cfg: ModelConfig, mixer, positions):
     window = cfg.window if mixer == "local" else 0
     o = flash_attention(q, k, v, causal=cfg.causal, window=window,
                         q_chunk=1024, kv_chunk=1024)
-    return x + o.reshape(B, S, cfg.attn_dim) @ p["wo"]
+    return x + o.reshape(B, S, cfg.attn_dim) @ p["wo"], (k, v)
+
+
+def _attn_decode(x, p, cfg: ModelConfig, mixer, cache, pos: int):
+    """x: (B, 1, d); cache: {'k', 'v': (B, cap, KV, hd)}; pos: the new
+    token's position.  Returns the new cache, the old one untouched."""
+    B = x.shape[0]
+    h = _norm(x, p["ln"], cfg)
+    q, k, v = _qkv(h, p, cfg)
+    sin, cos = _sincos(cfg, torch.tensor([pos], device=x.device), mixer)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    cap = cache["k"].shape[1]
+    window = cfg.window if mixer == "local" else 0
+    ring = bool(window) and cap <= window         # ring buffer cache
+    slot = pos % cap if ring else min(pos, cap - 1)
+    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    idx = torch.arange(cap, device=x.device)
+    # a ring's slots are all valid after warm-up; only slots <= pos before
+    valid = (idx <= pos) | (pos >= cap) if ring else idx <= pos
+    o = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                         valid[None].expand(B, cap))
+    o = o.reshape(B, 1, cfg.attn_dim) @ p["wo"]
+    return x + o, {"k": k_cache, "v": v_cache}
+
+
+def _rwkv_mix(h, prev, mu):
+    """Token-shift lerp; h: (B, S, d), prev: (B, d) state; mu: (d,)."""
+    hh = torch.cat([prev[:, None].to(h.dtype), h[:, :-1]], dim=1)
+    return h + (hh - h) * mu
+
+
+def _rwkv_decay(mix_w, p):
+    """Data-dependent decay w = exp(-exp(w0 + lora(x))), float32."""
+    lora = torch.tanh(mix_w @ p["w_lora_a"]) @ p["w_lora_b"]
+    return torch.exp(-torch.exp(
+        torch.clamp(p["w0"] + lora.float(), -8.0, 2.0)))
+
+
+def _rwkv_train(x, p, cfg: ModelConfig):
+    """RWKV6 time mix over a whole sequence; the WKV recurrence is the
+    kernel on the card and the plain recurrence on the CPU."""
+    B, S, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    h = _norm(x, p["ln"], cfg)
+    prev = torch.zeros((B, d), dtype=h.dtype, device=h.device)
+    mr, mk, mv, mw, mg = p["mu"].unbind(0)
+
+    def heads(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    r = heads(_rwkv_mix(h, prev, mr) @ p["wr"])
+    k = heads(_rwkv_mix(h, prev, mk) @ p["wk"])
+    v = heads(_rwkv_mix(h, prev, mv) @ p["wv"])
+    g = _rwkv_mix(h, prev, mg) @ p["wg"]
+    w = heads(_rwkv_decay(_rwkv_mix(h, prev, mw), p))
+    out, S_last = wkv(r, k, v, w, p["u"].contiguous())
+    out = out.transpose(1, 2)                               # (B,S,H,hd)
+    out = rms_norm(out, p["gn"], cfg.norm_eps).reshape(B, S, d)
+    o = (out * F.silu(g)) @ p["wo"]
+    return x + o, {"S": S_last, "tm": h[:, -1].float()}
+
+
+def _rwkv_decode(x, p, cfg: ModelConfig, cache):
+    B, _, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    h = _norm(x, p["ln"], cfg)[:, 0]
+    prev = cache["tm"].to(h.dtype)
+    mr, mk, mv, mw, mg = p["mu"].unbind(0)
+
+    def mix(mu):
+        return h + (prev - h) * mu
+    r = (mix(mr) @ p["wr"]).reshape(B, H, hd)
+    k = (mix(mk) @ p["wk"]).reshape(B, H, hd)
+    v = (mix(mv) @ p["wv"]).reshape(B, H, hd)
+    g = mix(mg) @ p["wg"]
+    w = _rwkv_decay(mix(mw)[None], p)[0].reshape(B, H, hd)
+    out, S_new = wkv_step(r.float(), k.float(), v.float(), w.float(),
+                          p["u"].float(), cache["S"])
+    out = rms_norm(out, p["gn"], cfg.norm_eps)
+    o = (out.reshape(B, d).to(x.dtype) * F.silu(g)) @ p["wo"]
+    return x + o[:, None], {"S": S_new, "tm": h.float()}
+
+
+def _channel_mix(x, p, cfg: ModelConfig, cache=None):
+    """RWKV channel mix (stateful); ``cache`` holds the previous token's
+    normed input in decode, None in a full-sequence pass."""
+    h = _norm(x, p["ln"], cfg)
+    if cache is not None:
+        prev = cache["cm"].to(h.dtype)[:, None]
+    else:
+        prev = torch.zeros((x.shape[0], 1, x.shape[-1]), dtype=h.dtype,
+                           device=h.device)
+    hh = torch.cat([prev, h[:, :-1]], dim=1) if h.shape[1] > 1 else prev
+    mk, mr = p["mu"][0], p["mu"][1]
+    xk = h + (hh - h) * mk
+    xr = h + (hh - h) * mr
+    kk = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr"]) * (kk @ p["wv"])
+    return x + out, {"cm": h[:, -1].float()}
 
 
 def _ffn_apply(x, p, cfg: ModelConfig):
@@ -241,13 +393,51 @@ def _ffn_apply(x, p, cfg: ModelConfig):
     return x + out
 
 
-def _apply_unit(x, unit_params, cfg: ModelConfig, kinds, positions):
-    """One pattern unit (a list of layers) on the residual stream."""
+def _apply_unit(x, unit_params, cfg: ModelConfig, kinds, positions,
+                caches=None, pos=None, collect: bool = False):
+    """One pattern unit (a list of layers) on the residual stream: a
+    full-sequence pass (``caches`` None) or one decode step at ``pos``.
+    Returns ``(x, new caches)`` in the reference's per-layer layout
+    (``{"mix": ..., "ffn": ...}``; a full-sequence attention layer gives
+    its ``(k, v)``) in decode or with ``collect``, else ``(x, None)``: a
+    training pass drops each layer's cache before its FFN runs, so that
+    k and v do not stay alive through it."""
+    decode = caches is not None
+    keep = decode or collect
+    new_caches = {}
     for j, (mixer, _) in enumerate(kinds):
         lp = unit_params[f"l{j}"]
-        x = _attn_train(x, lp["mixer"], cfg, mixer, positions)
-        x = _ffn_apply(x, lp["ffn"], cfg)
-    return x
+        cache_j = caches[f"l{j}"] if decode else None
+        if mixer == "rwkv":
+            if decode:
+                x, mix_cache = _rwkv_decode(x, lp["mixer"], cfg,
+                                            cache_j["mix"])
+            else:
+                x, mix_cache = _rwkv_train(x, lp["mixer"], cfg)
+        elif decode:
+            x, mix_cache = _attn_decode(x, lp["mixer"], cfg, mixer,
+                                        cache_j["mix"], pos)
+        else:
+            x, mix_cache = _attn_train(x, lp["mixer"], cfg, mixer, positions)
+        if not keep:
+            mix_cache = None
+        if mixer == "rwkv":
+            x, ffn_cache = _channel_mix(
+                x, lp["ffn"], cfg, cache_j["ffn"] if decode else None)
+            entry = {"mix": mix_cache, "ffn": ffn_cache}
+        else:
+            x = _ffn_apply(x, lp["ffn"], cfg)
+            entry = {"mix": mix_cache}
+        if keep:
+            new_caches[f"l{j}"] = entry
+    return x, (new_caches if keep else None)
+
+
+def _stack(trees: list) -> Any:
+    """Trees of one structure -> one tree, leaves stacked on a new axis 0
+    (the layout of the reference's scanned caches)."""
+    cols = zip(*(tree_leaves(t) for t in trees))
+    return tree_unflatten(trees[0], [torch.stack(c) for c in cols])
 
 
 # ===================================================================== #
@@ -294,14 +484,18 @@ def chunked_ce(x, head_w, labels, weights, cfg: ModelConfig,
 # ===================================================================== #
 # forward pass
 # ===================================================================== #
-def forward(params, batch, cfg: ModelConfig):
+def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
     """Full-sequence forward.  Returns ``(hidden (B, S, d), aux)``; aux
-    (the MoE balance loss in the reference) is zero on the dense path."""
+    (the MoE balance loss in the reference) is zero here.  With
+    ``collect_cache`` it returns ``(hidden, aux, caches)``: each group's
+    per-layer caches stacked on the layer axis, as the reference's (and
+    without ``remat``, as the reference's)."""
     _check_supported(cfg)
     dt = _dtype(cfg.compute_dtype)
     x = _embed_inputs(params, batch, cfg).to(dt)
     positions = torch.arange(x.shape[1], device=x.device)
-    remat = cfg.remat in ("full", "dots")
+    remat = cfg.remat in ("full", "dots") and not collect_cache
+    all_caches = []
     for g, gp in zip(group_layout(cfg), params["groups"]):
         # one unbind per stacked leaf: its backward stacks the layers'
         # gradients once, where indexing would add a full-size zero
@@ -310,14 +504,27 @@ def forward(params, batch, cfg: ModelConfig):
 
         def unit(x, *leaves, kinds=g.kinds, gp=gp):
             up = tree_unflatten(gp, [t.to(dt) for t in leaves])
-            return _apply_unit(x, up, cfg, kinds, positions)
+            return _apply_unit(x, up, cfg, kinds, positions,
+                               collect=collect_cache)
 
+        def unit_x(x, *leaves, unit=unit):
+            return unit(x, *leaves)[0]
+
+        caches = []
         for r in range(g.n_repeat):
             leaves = [layer[r] for layer in layers]
-            x = (checkpoint(unit, x, *leaves, use_reentrant=False)
-                 if remat else unit(x, *leaves))
+            if collect_cache:
+                x, c = unit(x, *leaves)
+                caches.append(c)
+            elif remat:
+                x = checkpoint(unit_x, x, *leaves, use_reentrant=False)
+            else:
+                x = unit_x(x, *leaves)
+        if collect_cache:
+            all_caches.append(_stack(caches))
     x = _norm(x, params["final_norm"], cfg)
-    return x, torch.zeros((), device=x.device)
+    aux = torch.zeros((), device=x.device)
+    return (x, aux, all_caches) if collect_cache else (x, aux)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -329,3 +536,103 @@ def loss_fn(params, batch, cfg: ModelConfig):
     head = _lm_head(params, cfg).to(_dtype(cfg.compute_dtype))
     loss = chunked_ce(x, head, batch["labels"], batch["weights"], cfg)
     return loss + 0.01 * aux
+
+
+# ===================================================================== #
+# serving
+# ===================================================================== #
+def _layer_cache(cfg: ModelConfig, mixer, B: int, cap: int, n: int,
+                 device) -> dict:
+    """Empty decode caches of ``n`` stacked layers of kind ``mixer``."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((n,) + shape, dtype=dtype, device=device)
+    if mixer == "rwkv":
+        d, hd = cfg.d_model, cfg.rwkv_head_dim
+        return {"mix": {"S": zeros(B, d // hd, hd, hd), "tm": zeros(B, d)},
+                "ffn": {"cm": zeros(B, d)}}
+    c = min(cap, cfg.window) if (mixer == "local" and cfg.window) else cap
+    shape, cdt = (B, c, cfg.n_kv_heads, cfg.head_dim), \
+        _dtype(cfg.compute_dtype)
+    return {"mix": {"k": zeros(*shape, dtype=cdt),
+                    "v": zeros(*shape, dtype=cdt)}}
+
+
+def init_cache(cfg: ModelConfig, B: int, cap: int, device="cuda") -> list:
+    """Empty decode caches for ``B`` sequences of up to ``cap`` tokens,
+    one dict per group, leaves stacked on the layer axis."""
+    _check_supported(cfg)
+    return [{f"l{j}": _layer_cache(cfg, mixer, B, cap, g.n_repeat, device)
+             for j, (mixer, _) in enumerate(g.kinds)}
+            for g in group_layout(cfg)]
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg: ModelConfig):
+    """Forward + build decode caches.  Returns ``(last_logits (B, V)
+    float32, caches, pos)`` with ``pos`` = S, the next token's position."""
+    x, _, raw = forward(params, batch, cfg, collect_cache=True)
+    S = x.shape[1]
+    cdt = _dtype(cfg.compute_dtype)
+    caches = []
+    for g, rc in zip(group_layout(cfg), raw):
+        unit = {}
+        for j, (mixer, _) in enumerate(g.kinds):
+            src = rc[f"l{j}"]
+            if mixer in ("attn", "local"):
+                k, v = src["mix"]               # (R, B, S, KV, hd)
+                if mixer == "local" and cfg.window and cfg.window < S:
+                    W = cfg.window
+                    ring = torch.arange(S - W, S, device=k.device) % W
+                    k = torch.zeros_like(k[:, :, :W]).index_copy_(
+                        2, ring, k[:, :, S - W:])
+                    v = torch.zeros_like(v[:, :, :W]).index_copy_(
+                        2, ring, v[:, :, S - W:])
+                src = {"mix": {"k": k.to(cdt), "v": v.to(cdt)}}
+            unit[f"l{j}"] = src
+        caches.append(unit)
+    head = _lm_head(params, cfg).to(cdt)
+    last = x[:, -1].to(cdt) @ head
+    return last.float(), caches, S
+
+
+def pad_cache(caches: list, cfg: ModelConfig, extra: int) -> list:
+    """Grow full-attention k/v caches by ``extra`` decode slots; ring
+    (local-window) and recurrent caches are fixed-size and kept."""
+    out = []
+    for g, gc in zip(group_layout(cfg), caches):
+        unit = {}
+        for j, (mixer, _) in enumerate(g.kinds):
+            e = gc[f"l{j}"]
+            if mixer == "attn" or (mixer == "local" and not cfg.window):
+                e = {"mix": {n: F.pad(t, (0, 0, 0, 0, 0, extra))
+                             for n, t in e["mix"].items()}}
+            unit[f"l{j}"] = e
+        out.append(unit)
+    return out
+
+
+@torch.no_grad()
+def decode_step(params, tokens, caches: list, pos: int, cfg: ModelConfig):
+    """One serve step: ``tokens`` (B, 1) at position ``pos`` -> ``(logits
+    (B, V) float32, new caches)``.  Full-attention layers write the token
+    at ``pos`` (callers keep pos < cap); local layers use a ring buffer
+    of size ``window``; RWKV layers step their state."""
+    _check_supported(cfg)
+    dt = _dtype(cfg.compute_dtype)
+    # gather, then cast: the reference's take of the cast table, cheaper
+    x = F.embedding(tokens.long(), params["embed"]).to(dt)
+    new_caches = []
+    for g, gp, gc in zip(group_layout(cfg), params["groups"], caches):
+        layers = [torch.unbind(t) for t in tree_leaves(gp)]
+        cache_layers = [torch.unbind(t) for t in tree_leaves(gc)]
+        outs = []
+        for r in range(g.n_repeat):
+            up = tree_unflatten(gp, [t[r].to(dt) for t in layers])
+            uc = tree_unflatten(gc, [t[r] for t in cache_layers])
+            x, nc = _apply_unit(x, up, cfg, g.kinds, None, caches=uc,
+                                pos=pos)
+            outs.append(nc)
+        new_caches.append(_stack(outs))
+    x = _norm(x, params["final_norm"], cfg)
+    head = _lm_head(params, cfg).to(dt)
+    return (x[:, 0] @ head).float(), new_caches

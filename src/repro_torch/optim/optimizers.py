@@ -33,16 +33,19 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(template, leaves) -> Any:
     """A tree shaped like ``template`` holding ``leaves`` (in
     :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(template)
+
+def _build(t, it) -> Any:
+    # a module-level recursion: a nested recursive closure would form a
+    # reference cycle holding ``leaves`` (e.g. a layer's weights cast to
+    # bf16) until the garbage collector runs
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-coded-training bridge decoding through it.
+"""The port on the card: the CUDA kernels against their plain versions, the
+coded-training bridge decoding through them, and the rwkv6 model on the
+card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -181,3 +182,93 @@ def test_transformer_trainer_launches_the_kernels(cuda_device):
     np.testing.assert_allclose(tr.last_decoded.cpu().numpy(),
                                tr.last_full_grad.cpu().numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# the WKV recurrence: kernel vs its plain version (the sequential
+# recurrence).  float32: both sum K products per step in other orders
+# (the reference's kernel-test bound, 2e-4, on the output's scale);
+# bfloat16 inputs: the same float32 arithmetic, so the bf16 outputs
+# differ by at most one rounding step.
+# --------------------------------------------------------------------- #
+def _wkv_inputs(device, shape, dtype, w=None, seed=0):
+    B, H, S, K, V = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*sh):
+        return torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)).to(device, getattr(torch, dtype))
+    r, k, v = draw(B, H, S, K), draw(B, H, S, K), draw(B, H, S, V)
+    wv = (rng.uniform(0.3, 0.99, (B, H, S, K)) if w is None
+          else np.full((B, H, S, K), w))
+    return r, k, v, torch.from_numpy(wv.astype(np.float32)).to(device), \
+        draw(H, K)
+
+
+@pytest.mark.parametrize("shape,w", [
+    ((1, 2, 64, 16, 16), None), ((2, 1, 128, 32, 32), None),
+    ((1, 1, 96, 64, 64), None),                  # tests/test_kernels.py
+    ((1, 2, 128, 64, 64), 0.36787944117144233),  # e^-1: chunked form off
+    ((1, 2, 128, 64, 64), 0.000617978989331094),  # exp(-e^2)
+    ((2, 3, 77, 16, 64), None),                  # ragged, K != V
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_kernel_matches_plain_on_card(cuda_device, shape, w, dtype):
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
+    args = _wkv_inputs(cuda_device, shape, dtype, w)
+    before = wkv.launches
+    out, s_last = wkv(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    out_ref, s_ref = wkv_ref(*args)
+    assert out.dtype == args[0].dtype and s_last.dtype == torch.float32
+    scale = max(1.0, float(out_ref.float().abs().max()))
+    tol = (dict(rtol=1e-2, atol=1e-2) if dtype == "bfloat16"
+           else dict(rtol=2e-4, atol=2e-4 * scale))
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               out_ref.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(s_last.cpu().numpy(), s_ref.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_wkv_kernel_refuses_what_needs_a_gradient(cuda_device):
+    from repro_torch.kernels.rwkv6_wkv import wkv
+    r, k, v, w, u = _wkv_inputs(cuda_device, (1, 1, 8, 16, 16), "float32")
+    before = wkv.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        wkv(r.requires_grad_(True), k, v, w, u)
+    with pytest.raises(ValueError, match="K and V"):
+        wkv(*_wkv_inputs(cuda_device, (1, 1, 8, 8, 8), "float32"))
+    assert wkv.launches == before
+
+
+def test_rwkv_model_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """REDUCED rwkv6 in float32: prefill and two decode steps on the card
+    (the WKV kernel, one launch per layer and prefill) against the CPU
+    (the plain recurrence)."""
+    import dataclasses
+
+    from repro_torch.configs.rwkv6_1_6b import REDUCED
+    from repro_torch.kernels.rwkv6_wkv import wkv
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+    cfg = dataclasses.replace(REDUCED, compute_dtype="float32")
+    from repro_torch.optim.optimizers import tree_map
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 70)))
+    out = []
+    for p, dev in ((p_gpu, cuda_device), (p_cpu, "cpu")):
+        before = wkv.launches
+        last, caches, pos = prefill(p, {"tokens": toks[:, :68].to(dev)},
+                                    cfg)
+        assert wkv.launches == before + (cfg.n_layers if dev != "cpu"
+                                         else 0)
+        steps = [last]
+        for i in range(2):
+            lg, caches = decode_step(p, toks[:, 68 + i:69 + i].to(dev),
+                                     caches, pos + i, cfg)
+            steps.append(lg)
+        out.append(torch.stack(steps).cpu().numpy())
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4, atol=1e-4)

@@ -43,5 +43,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.models.common", "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.configs.base",
                 "repro_torch.configs.stablelm_1_6b",
-                "repro_torch.train.curves", "repro_torch.train.e2e"):
+                "repro_torch.train.curves", "repro_torch.train.e2e",
+                "repro_torch.configs.rwkv6_1_6b", "repro_torch.models.rwkv6",
+                "repro_torch.kernels.rwkv6_wkv.ops",
+                "repro_torch.kernels.rwkv6_wkv.ref",
+                "repro_torch.launch.serve"):
         assert mod in got["imported"]
