@@ -19,7 +19,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
               shape; the WKV recurrence on the reference's kernel-test
               cases, bf16 inputs, a ragged sequence, the decays where the
               reference's chunked form fails, w -> 1 and the serve path's
-              shape; each with its stated tolerance;
+              shape; the RG-LRU scan on the reference's kernel-test cases,
+              a ragged (2, 1000, 2500), a -> 1 over 4,096 steps and the
+              recurrentgemma path's shape; the attention forward at head
+              width 256 (MQA, G = 10) with a window of 2,048 over 3,000
+              tokens and at the recurrentgemma path's shape, and the
+              backward's refusal of that width; each with its stated
+              tolerance;
 4. mlp     -- the first path: ``CodedTrainer`` with the paper's MLP
               (784, 256, 128, 10) on ``bursty-stragglers``, 10,000 examples
               per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card,
@@ -43,10 +49,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
               (bf16 and float32), the model on the card against the CPU at
               REDUCED, and the REDUCED serve loop on the card and the CPU
               (equal admissions and served counts);
-8. times   -- each kernel, its plain version and one library call, timed
+8. rg      -- the fourth path: the same serve loop and traffic with
+              recurrentgemma-2b at full size (26 layers, 2.68 B parameters,
+              bf16 compute): each prefill runs the RG-LRU kernel in its 18
+              rec layers and the attention forward (head width 256) in its
+              8 local layers.  Then teacher-forced decode against a fresh
+              forward at prompts of 1,024, 2,040 (decode crosses the window
+              of 2,048) and 2,560 tokens (a ring from prefill), in bf16 and
+              float32, the model on the card against the CPU at REDUCED,
+              and the REDUCED serve loop on the card and the CPU;
+9. times   -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
               the per-epoch phase split of the training paths and a
-              profile of one prefill and its decode steps.
+              profile of one prefill and its decode steps of each serve
+              path.
 
 Launch counts are zeroed just before each path and read just after it.
 The line before the last holds one JSON object with every kernel's
@@ -90,6 +106,14 @@ SERVE = dict(clients=6, slots=10, prompt_len=1024, gen_len=16, batch=4,
              V=30.0, seed=0)
 #: the WKV shape of the serve path's prefill: (B, H, S, K, V)
 WKV_PATH = (4, 32, 1024, 64, 64)
+# the recurrentgemma-2b serve path: full size, the same traffic (SERVE)
+#: the RG-LRU scan of its prefill: (B, S, D = d_rnn), float32 a and b
+RG_SCAN_PATH = (4, 1024, 2560)
+#: the attention of its local layers' prefill: (B, S, KV, G, D), window
+RG_FA_PATH, RG_WINDOW = (4, 1024, 1, 10, 256), 2048
+#: teacher-forced prompts: below the window, decoding across its edge,
+#: and above it (a ring from prefill)
+RG_TF_PROMPTS = (1024, 2040, 2560)
 
 
 def log(msg: str) -> None:
@@ -122,26 +146,38 @@ def check_close(name, got, want, rtol, atol) -> float:
 def set_counts(counts: dict) -> None:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_wkv import wkv
     coded_reduce.launches = counts["coded_reduce"]
     flash_attention.fwd_launches = counts["flash_attention_fwd"]
     flash_attention.bwd_launches = counts["flash_attention_bwd"]
     wkv.launches = counts["rwkv6_wkv"]
+    rglru_scan.launches = counts["rglru_scan"]
+
+
+def no_launches(**n) -> dict:
+    """Every kernel's count at 0, but those given."""
+    counts = dict.fromkeys(("coded_reduce", "flash_attention_fwd",
+                            "flash_attention_bwd", "rwkv6_wkv",
+                            "rglru_scan"), 0)
+    counts.update(n)
+    return counts
 
 
 def reset_counts() -> None:
-    set_counts({"coded_reduce": 0, "flash_attention_fwd": 0,
-                "flash_attention_bwd": 0, "rwkv6_wkv": 0})
+    set_counts(no_launches())
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_wkv import wkv
     return {"coded_reduce": coded_reduce.launches,
             "flash_attention_fwd": flash_attention.fwd_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
-            "rwkv6_wkv": wkv.launches}
+            "rwkv6_wkv": wkv.launches,
+            "rglru_scan": rglru_scan.launches}
 
 
 # --------------------------------------------------------------------- #
@@ -426,8 +462,116 @@ def wkv_kernel_phase() -> float:
     return path_err
 
 
+def _scan_inputs(seed, shape, dtype, a_lo=0.5, a_hi=0.999):
+    """a ~ U(a_lo, a_hi) and b ~ N(0, 0.1) in ``dtype`` on the card, drawn
+    with numpy (the reference's kernel tests: U(0.5, 0.999))."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(a_lo, a_hi, shape).astype(np.float32)
+    b = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return (torch.from_numpy(a).to("cuda", dtype),
+            torch.from_numpy(b).to("cuda", dtype))
+
+
+def rglru_kernel_phase() -> float:
+    """The RG-LRU scan kernel against its plain version (the sequential
+    recurrence); returns the largest output error at the path's shape.
+
+    Tolerances: the reference's kernel-test bounds (tests/test_kernels.py):
+    float32 rtol 2e-5 and atol 2e-5·max(1, max|out|) for out (as a -> 1,
+    |h| grows with S), rtol 1e-5 and atol 1e-5·max(1, max|h|) for h_last;
+    bfloat16 2e-2 and 1e-2.  Both multiply, then add, in float32, step by
+    step, so the errors should be 0."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
+    path_err = 0.0
+
+    def case(tag, shape, dtype, a_lo=0.5, a_hi=0.999):
+        nonlocal path_err
+        a, b = _scan_inputs(0, shape, dtype, a_lo, a_hi)
+        out, h_last = rglru_scan(a, b)
+        torch.cuda.synchronize()
+        out_r, h_r = rglru_ref(a, b)
+        if out.dtype != dtype or h_last.dtype != torch.float32 or \
+                h_last.shape != (shape[0], shape[2]):
+            raise AssertionError(f"{tag}: {out.dtype}, {h_last.dtype} "
+                                 f"{tuple(h_last.shape)}")
+        scale = max(1.0, float(out_r.float().abs().max()))
+        if dtype == torch.float32:
+            tol, tol_h = (2e-5, 2e-5 * scale), (1e-5, 1e-5 * scale)
+        else:
+            tol, tol_h = (2e-2, 2e-2), (1e-2, 1e-2)
+        e_out = check_close(f"rglru {tag} out", out, out_r, *tol)
+        e_h = check_close(f"rglru {tag} h_last", h_last, h_r, *tol_h)
+        log(f"[kernels] rglru_scan {tag} {str(dtype)[6:]}: max abs err out "
+            f"{e_out:.3e} (rtol {tol[0]}, atol {tol[1]:.3g}; max|out| "
+            f"{scale:.4g}), h_last {e_h:.3e}")
+        if shape == RG_SCAN_PATH:
+            path_err = max(path_err, e_out)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        # the reference's kernel-test cases (tests/test_kernels.py:77)
+        for shape in [(2, 128, 64), (1, 256, 128), (3, 64, 256)]:
+            case(f"{shape}", shape, dtype)
+        case("ragged (2, 1000, 2500)", (2, 1000, 2500), dtype)
+        case(f"path {RG_SCAN_PATH}", RG_SCAN_PATH, dtype)
+    case("a -> 1 (2, 4096, 256)", (2, 4096, 256), torch.float32, 0.9999,
+         1.0)
+    torch.cuda.empty_cache()
+    return path_err
+
+
+def flash256_kernel_phase() -> float:
+    """The attention forward at head width 256 (recurrentgemma-2b's local
+    layers: MQA, G = 10, window 2,048) against its plain version, with
+    ``FA_TOL``'s forward bounds, and the backward's refusal of that width;
+    returns the largest error at the path's shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    path_err = 0.0
+    for shape in ((1, 3000, 1, 10, 256), RG_FA_PATH):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _ = _fa_inputs(0, shape, dtype)
+            kw = dict(causal=True, window=RG_WINDOW, q_chunk=1024,
+                      kv_chunk=1024)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
+            name = str(dtype)[6:]
+            fr, fa = FA_TOL[name][0]
+            e = max(check_close(f"fa256 {shape} out", out, out_r, fr, fa),
+                    check_close(f"fa256 {shape} lse", lse, lse_r, 1e-5,
+                                1e-5))
+            log(f"[kernels] flash_attention forward {shape} {name} causal "
+                f"window={RG_WINDOW}: max abs err {e:.3e} (rtol {fr}, atol "
+                f"{fa})")
+            if shape == RG_FA_PATH and dtype == torch.bfloat16:
+                path_err = e
+            del q, k, v, out, lse, out_r, lse_r
+    q, k, v, do = _fa_inputs(1, (1, 64, 1, 2, 256), torch.float32)
+    out, lse = flash_attention_fwd(q, k, v)
+    before = flash_attention.bwd_launches
+    try:
+        flash_attention_bwd(q, k, v, out, lse, do)
+    except NotImplementedError as err:
+        if "ROADMAP" not in str(err) or \
+                flash_attention.bwd_launches != before:
+            raise
+        log(f"[kernels] flash_attention backward at head width 256 refused "
+            f"before any launch: {err}")
+    else:
+        raise AssertionError("the backward took head width 256")
+    torch.cuda.empty_cache()
+    return path_err
+
+
 # --------------------------------------------------------------------- #
-# 4-5. the paths
+# 4-8. the paths
 # --------------------------------------------------------------------- #
 class PhaseTimer:
     """Host clock around each trainer phase, synchronised with the card at
@@ -628,9 +772,9 @@ def lm_phase():
     n_decoded = sum(lg.decode_ok for v in logs.values() for lg in v)
     K, L = spec.K, cfg.n_layers
     remat = 2 if cfg.remat in ("full", "dots") else 1
-    want = {"coded_reduce": n_decoded,
-            "flash_attention_fwd": remat * K * L * n_epochs,
-            "flash_attention_bwd": K * L * n_epochs, "rwkv6_wkv": 0}
+    want = no_launches(coded_reduce=n_decoded,
+                       flash_attention_fwd=remat * K * L * n_epochs,
+                       flash_attention_bwd=K * L * n_epochs)
     log(f"[lm] {len(SCHEMES)} schemes x {LM_EPOCHS} epochs on the card in "
         f"{wall:.2f} s; {n_decoded} decoded; launches {launches} (the path "
         f"implies {want}); decoded vs full-batch max abs err "
@@ -726,13 +870,13 @@ def serve_params(cfg, device):
 
 def forward_logits(params, cfg, tokens, start):
     """Logits of a fresh forward over ``tokens`` (1, n) at positions
-    ``start`` onwards, float32."""
+    ``start`` onwards, float32 (the model's head: tied or its own)."""
     import torch
 
-    from repro_torch.models.transformer import forward
+    from repro_torch.models.transformer import _lm_head, forward
     with torch.no_grad():
         x, _ = forward(params, {"tokens": tokens}, cfg)
-        head = params["lm_head"].to(getattr(torch, cfg.compute_dtype))
+        head = _lm_head(params, cfg).to(getattr(torch, cfg.compute_dtype))
         return (x[0, start:] @ head).float()
 
 
@@ -767,6 +911,96 @@ def teacher_forced(params, cfg, prompt, gen_len):
 #: of 6 % of the largest logit and 5.8 % in norm, so the bound is 10 %
 #: elementwise and in norm.
 TF_TOL = {"bfloat16": (0.1, 0.1), "float32": (1e-3, 2e-4)}
+#: the same for recurrentgemma-2b, measured first (an H100 80GB HBM3 at
+#: 700 W).  float32: ``TF_TOL``'s rtol in norm, but atol 1e-3 of the
+#: largest |logit|, not 2e-4: at these weights a one-ulp nudge of every
+#: weight moves a float32 forward's logits by 3.4-3.7e-4 of the largest
+#: (``nudge_sensitivity``, logged each run), so no two float32 routes
+#: agree to 2e-4; decode against forward measured 1.1-3.5e-4.  bfloat16:
+#: the routes round the residual stream after each of 52 sublayers at
+#: other places, and each bf16 route is 35-37 % from the float32 forward
+#: in norm on the same tokens; decode against forward measured 14-15 % in
+#: norm and 16-19 % of the largest logit elementwise, so the bound is
+#: 25 %, and decode must be as close to float32 as the forward is
+#: (``BF16_AS_CLOSE``)
+RG_TF_TOL = {"bfloat16": (0.25, 0.25), "float32": (1e-3, 1e-3)}
+#: bf16 decode's norm distance from the float32 forward, at most this
+#: many times the bf16 forward's (measured 0.99-1.006 on both serve paths)
+BF16_AS_CLOSE = 1.05
+
+
+def nudge_sensitivity(params, cfg, tokens, start, seed=0) -> tuple:
+    """How far a fresh forward's logits move when every weight moves by
+    -1, 0 or +1 float32 ulp, drawn entry by entry: the model's own
+    conditioning at these weights, against which a difference of two
+    routes in float32 is read.  Returns (max abs change as a fraction of
+    the largest |logit|, norm rel change)."""
+    import torch
+
+    from repro_torch.optim.optimizers import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(x):
+        d = torch.randint(-1, 2, x.shape, generator=gen, device=x.device,
+                          dtype=torch.int8)
+        up = torch.nextafter(x, torch.full_like(x, math.inf))
+        down = torch.nextafter(x, torch.full_like(x, -math.inf))
+        return torch.where(d > 0, up, torch.where(d < 0, down, x))
+    ref = forward_logits(params, cfg, tokens, start)
+    moved = forward_logits(tree_map(nudge, params), cfg, tokens, start)
+    return (float((moved - ref).abs().max() / ref.abs().max()),
+            float((moved - ref).norm() / ref.norm()))
+
+
+def tf_check(tag, params, cfg_of, prompt, gen_len, tol) -> dict:
+    """Teacher-forced decode against a fresh forward, in bfloat16 and
+    float32 (``cfg_of(dtype)``), each within ``tol[dtype]`` = (rtol, atol
+    as a fraction of the largest |logit|) elementwise and rtol in norm;
+    float32 must make the same greedy choices.  Returns the errors."""
+    S = prompt.shape[1]
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        got, ref, full = teacher_forced(params, cfg_of(dtype), prompt,
+                                        gen_len)
+        rtol, frac = tol[dtype]
+        atol = frac * float(ref.abs().max())
+        rel = float((got - ref).norm() / ref.norm())
+        err = float((got - ref).abs().max())
+        same = (got.argmax(-1) == ref.argmax(-1)).tolist()
+        log(f"[{tag}] teacher-forced {dtype}, prompt {S}: {got.shape[0]} "
+            f"positions of {got.shape[1]} logits, max abs err {err:.4g} "
+            f"(rtol {rtol}, atol {atol:.3g} = {frac} x max|logit| "
+            f"{float(ref.abs().max()):.4g}), norm rel err {rel:.3e} (bound "
+            f"{rtol}); argmax equal at {sum(same)} of {len(same)}")
+        check_close(f"{tag} teacher-forced {dtype}, prompt {S}", got, ref,
+                    rtol, atol)
+        if rel > rtol:
+            raise AssertionError(f"{tag} teacher-forced {dtype}, prompt "
+                                 f"{S}: norm rel err {rel}")
+        if dtype == "float32" and not all(same):
+            raise AssertionError(f"{tag} float32 greedy choices differ, "
+                                 f"prompt {S}: {same}")
+        if dtype == "float32" and tag == "rg":
+            frac_n, rel_n = nudge_sensitivity(params, cfg_of(dtype), full,
+                                              S - 1)
+            log(f"[{tag}] float32 forward under a one-ulp nudge of every "
+                f"weight, prompt {S}: max abs change {frac_n:.3e} of the "
+                f"largest |logit|, norm rel {rel_n:.3e} (decode vs forward:"
+                f" {err / float(ref.abs().max()):.3e} and {rel:.3e})")
+        if dtype == "bfloat16":
+            # both bf16 routes against float32 on the same tokens
+            exact = forward_logits(params, cfg_of("float32"), full, S - 1)
+            d_dec = float((got - exact).norm() / exact.norm())
+            d_fwd = float((ref - exact).norm() / exact.norm())
+            log(f"[{tag}] bf16 vs float32 on the same tokens, norm rel err:"
+                f" decode {d_dec:.3e}, forward {d_fwd:.3e} (ratio "
+                f"{d_dec / d_fwd:.4f}, bound {BF16_AS_CLOSE})")
+            if d_dec > BF16_AS_CLOSE * d_fwd:
+                raise AssertionError(f"{tag} bf16 decode is farther from "
+                                     f"float32 than the forward, prompt "
+                                     f"{S}: {d_dec} against {d_fwd}")
+        errs[dtype] = (err, rel)
+    return errs
 
 
 def serve_phase() -> dict:
@@ -800,9 +1034,7 @@ def serve_phase() -> dict:
     launches = read_counts()
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
-    want = {"coded_reduce": 0, "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0,
-            "rwkv6_wkv": cfg.n_layers * res["prefills"]}
+    want = no_launches(rwkv6_wkv=cfg.n_layers * res["prefills"])
     pre = np.asarray(res["prefill_ms"])
     dec = np.asarray(res["decode_ms"]) / SERVE["gen_len"]
     log(f"[serve] {SERVE['slots']} slots in {wall:.2f} s: {res['prefills']} "
@@ -825,33 +1057,8 @@ def serve_phase() -> dict:
     # teacher-forced: decode == a fresh forward, bf16 and float32
     prompt = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (1, SERVE["prompt_len"]))).cuda()
-    S = SERVE["prompt_len"]
-    for dtype in ("bfloat16", "float32"):
-        c = serve_config(compute_dtype=dtype)
-        got, ref, full = teacher_forced(params, c, prompt, SERVE["gen_len"])
-        rtol, frac = TF_TOL[dtype]
-        atol = frac * float(ref.abs().max())
-        rel = float((got - ref).norm() / ref.norm())
-        err = float((got - ref).abs().max())
-        same = (got.argmax(-1) == ref.argmax(-1)).tolist()
-        log(f"[serve] teacher-forced {dtype}: {got.shape[0]} positions of "
-            f"{got.shape[1]} logits, max abs err {err:.4g} (rtol {rtol}, "
-            f"atol {atol:.3g} = {frac} x max|logit|), norm rel err "
-            f"{rel:.3e} (bound {rtol}); argmax equal at {sum(same)} of "
-            f"{len(same)}")
-        check_close(f"teacher-forced {dtype}", got, ref, rtol, atol)
-        if rel > rtol:
-            raise AssertionError(f"teacher-forced {dtype}: norm rel err "
-                                 f"{rel}")
-        if dtype == "float32" and not all(same):
-            raise AssertionError(f"float32 greedy choices differ: {same}")
-        if dtype == "bfloat16":
-            # both bf16 routes against float32 on the same tokens
-            exact = forward_logits(params, serve_config(
-                compute_dtype="float32"), full, S - 1)
-            log(f"[serve] bf16 vs float32 on the same tokens, norm rel err: "
-                f"decode {float((got - exact).norm() / exact.norm()):.3e}, "
-                f"forward {float((ref - exact).norm() / exact.norm()):.3e}")
+    tf_check("serve", params, lambda dt: serve_config(compute_dtype=dt),
+             prompt, SERVE["gen_len"], TF_TOL)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -898,8 +1105,158 @@ def serve_phase() -> dict:
             "n_params": n_params}
 
 
+def rg_config(**over):
+    from repro_torch.configs.recurrentgemma_2b import FULL
+    return dataclasses.replace(FULL, **over)
+
+
+def _draw_rec_leaves(params, gen):
+    """Draw, in place, the rec leaves the reference initialises to ones or
+    zeros, as the CPU tests do: ``lam`` so that a^c lies in [0.9, 0.999]
+    (Griffin's initialisation; at lam = 1, a = exp(-10.5·r) and the
+    recurrence forgets everything in one step, so an error in the carry
+    would go unseen), ``b_a``, ``b_x`` and ``conv_b``."""
+    import torch
+    for group in params["groups"]:
+        for unit in group.values():
+            mix = unit["mixer"]
+            if "lam" not in mix:
+                continue
+            ac = torch.empty_like(mix["lam"]).uniform_(0.9, 0.999,
+                                                       generator=gen)
+            # a = exp(-c·softplus(lam)) at r = 1: softplus(lam) = -log(a^c)/c
+            mix["lam"].copy_(torch.log(torch.expm1(-torch.log(ac) / 8.0)))
+            mix["b_a"].normal_(0.0, 0.5, generator=gen)
+            mix["b_x"].normal_(0.0, 0.5, generator=gen)
+            mix["conv_b"].normal_(0.0, 0.1, generator=gen)
+    return params
+
+
+def rg_params(cfg, device):
+    """Random weights of ``cfg`` (recurrentgemma) from seed 0 on
+    ``device``."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device=device).manual_seed(0)
+    return _draw_rec_leaves(init_params(cfg, gen, device=device), gen)
+
+
+def rg_serve_phase() -> dict:
+    """The recurrentgemma-2b serve path at full size, its checks, and the
+    REDUCED twins.  Returns the path's launches, its timings, the
+    parameter count and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.recurrentgemma_2b import REDUCED
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import (decode_step, pad_cache,
+                                                prefill)
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = rg_config()
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    n_rec, n_local = kinds.count("rec"), kinds.count("local")
+    params = rg_params(cfg, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[rg] {cfg.name}: {cfg.n_layers} layers ({n_rec} rec, {n_local} "
+        f"local), d_model {cfg.d_model}, d_rnn {cfg.d_rnn} in "
+        f"{cfg.rnn_heads} heads, {cfg.n_heads} query heads and "
+        f"{cfg.n_kv_heads} kv head of {cfg.head_dim}, window {cfg.window}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (tied), compute "
+        f"{cfg.compute_dtype}; {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB float32); serve {SERVE}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path: counts zeroed just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve(cfg, params, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = no_launches(rglru_scan=n_rec * res["prefills"],
+                       flash_attention_fwd=n_local * res["prefills"])
+    pre = np.asarray(res["prefill_ms"])
+    dec = np.asarray(res["decode_ms"]) / SERVE["gen_len"]
+    log(f"[rg] {SERVE['slots']} slots in {wall:.2f} s: {res['prefills']} "
+        f"prefills, served {np.round(res['served'], 2).tolist()}, Jain "
+        f"{res['jain']:.4f}; launches {launches} (the path implies {want}: "
+        f"{n_rec} scans and {n_local} attention forwards a prefill); peak "
+        f"device memory {peak} bytes ({peak / 1e9:.2f} GB)")
+    log(f"[rg] ms per prefill (batch <= {SERVE['batch']} x "
+        f"{SERVE['prompt_len']} tokens): median {np.median(pre):.2f}, min "
+        f"{pre.min():.2f}, max {pre.max():.2f}; ms per decode step: median "
+        f"{np.median(dec):.3f}, min {dec.min():.3f}, max {dec.max():.3f}; "
+        f"schedule ms per slot median {np.median(res['schedule_ms']):.3f}")
+    if res["prefills"] == 0 or launches != want:
+        raise AssertionError(f"launch counts {launches}, the path implies "
+                             f"{want}")
+    if not 0.0 < res["jain"] <= 1.0 or res["served"].sum() <= 0:
+        raise AssertionError(f"served {res['served']}, Jain {res['jain']}")
+
+    # teacher-forced at batch 1: below the window, across its edge, above
+    tf = {}
+    for n in RG_TF_PROMPTS:
+        prompt = torch.from_numpy(np.random.default_rng(n).integers(
+            0, cfg.vocab, (1, n))).cuda()
+        tf[n] = tf_check("rg", params,
+                         lambda dt: rg_config(compute_dtype=dt), prompt,
+                         SERVE["gen_len"], RG_TF_TOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # REDUCED, float32: the model on the card (both kernels) vs the CPU,
+    # prefill past the window of 32
+    red = dataclasses.replace(REDUCED, compute_dtype="float32")
+    p_cpu = rg_params(red, "cpu")
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, red.vocab, (2, 104)))
+    out = []
+    for p, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        last, caches, pos = prefill(p, {"tokens": toks[:, :100].to(dev)},
+                                    red)
+        caches = pad_cache(caches, red, extra=4)
+        steps = [last]
+        for i in range(4):
+            lg, caches = decode_step(p, toks[:, 100 + i:101 + i].to(dev),
+                                     caches, pos + i, red)
+            steps.append(lg)
+        out.append((torch.stack(steps).cpu(),
+                    caches[0]["l0"]["mix"]["h"].cpu()))
+    e_l = check_close("rg REDUCED logits card vs CPU", out[0][0], out[1][0],
+                      1e-4, 1e-4)
+    e_h = check_close("rg REDUCED rec state card vs CPU", out[0][1],
+                      out[1][1], 1e-4,
+                      1e-4 * max(1.0, float(out[1][1].abs().max())))
+    log(f"[rg] REDUCED float32, prefill 100 tokens (window 32) + 4 decode "
+        f"steps, card vs CPU: logits max abs err {e_l:.3e}, rec state "
+        f"{e_h:.3e} (rtol 1e-4)")
+
+    # REDUCED serve loop (its defaults, bf16) on the card and on the CPU
+    red = REDUCED
+    t1 = time.perf_counter()
+    card = serve(red, rg_params(red, "cuda"), device="cuda")
+    t2 = time.perf_counter()
+    cpu = serve(red, rg_params(red, "cpu"), device="cpu")
+    for key in ("admitted", "scheduled", "served"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"rg REDUCED serve {key}: card "
+                                 f"{card[key]}, CPU {cpu[key]}")
+    log(f"[rg] REDUCED serve loop (40 slots): card {t2 - t1:.1f} s, CPU "
+        f"{time.perf_counter() - t2:.1f} s; equal admissions, schedules and "
+        f"served counts {np.round(card['served'], 2).tolist()}")
+    return {"launches": launches, "res": res, "peak": peak,
+            "n_params": n_params, "tf": tf}
+
+
 # --------------------------------------------------------------------- #
-# 7. times
+# 9. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -958,10 +1315,12 @@ def coded_reduce_times(n_slots, D, reps=50) -> dict:
     return row
 
 
-def flash_times(dtype) -> dict:
-    """Forward, backward and forward+backward of the kernel at the path's
-    shape, beside the plain version, ``scaled_dot_product_attention``
-    (timed as a yardstick only) and the bound."""
+def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
+    """The kernel's forward (and backward, and forward+backward) at
+    ``shape``, causal, beside the plain version,
+    ``scaled_dot_product_attention`` (timed as a yardstick only) and the
+    bound.  A window is timed only where it is no shorter than the
+    sequence, so that the library's causal call computes the same."""
     import torch
     import torch.nn.functional as F
 
@@ -969,34 +1328,42 @@ def flash_times(dtype) -> dict:
         flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
         flash_attention_fwd, flash_attention_fwd_ref)
 
-    B, S, KV, G, D = FA_PATH
+    B, S, KV, G, D = shape
     H = KV * G
-    q, k, v, do = _fa_inputs(5, FA_PATH, dtype)
+    assert not window or window >= S
+    kw = dict(causal=True, window=window)
+    q, k, v, do = _fa_inputs(5, shape, dtype)
     counts = read_counts()
-    out, lse = flash_attention_fwd(q, k, v)
-    t = {"fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v), 30),
-         "bwd_ms": time_ms(lambda: flash_attention_bwd(
-             q, k, v, out, lse, do), 20),
-         "plain_fwd_ms": time_ms(lambda: flash_attention_fwd_ref(q, k, v),
-                                 10),
-         "plain_bwd_ms": time_ms(lambda: flash_attention_bwd_ref(
-             q, k, v, out, lse, do), 5)}
-    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-
-    def fwd_bwd():
-        o = flash_attention(*leaves)
-        torch.autograd.grad(o, leaves, do)
-    t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
-    # the library's layout, (B, H, S, D), made once and not timed
-    qh, kh, vh, doh = [x.reshape(B, S, H, D).transpose(1, 2).contiguous()
-                       for x in (q, k, v, do)]
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    t = {"fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), 30),
+         "plain_fwd_ms": time_ms(
+             lambda: flash_attention_fwd_ref(q, k, v, **kw), 10)}
+    # the library's layout, (B, H, S, D), kv heads repeated to H, made
+    # once and not timed
+    qh, kh, vh, doh = [
+        x.reshape(B, S, x.shape[2], -1, D).expand(B, S, KV, G, D)
+        .reshape(B, S, H, D).transpose(1, 2).contiguous()
+        for x in (q, k[:, :, :, None], v[:, :, :, None], do)]
     t["sdpa_fwd_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
         30)
-    lib = [x.detach().clone().requires_grad_(True) for x in (qh, kh, vh)]
-    lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
-    t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-        lib_out, lib, doh, retain_graph=True), 20)
+    if backward:
+        t["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
+            q, k, v, out, lse, do), 20)
+        t["plain_bwd_ms"] = time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, do), 5)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q, k, v)]
+
+        def fwd_bwd():
+            o = flash_attention(*leaves)
+            torch.autograd.grad(o, leaves, do)
+        t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
+        lib = [x.detach().clone().requires_grad_(True)
+               for x in (qh, kh, vh)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+        t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib, doh, retain_graph=True), 20)
     set_counts(counts)                   # these launches are not a path's
 
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -1013,15 +1380,18 @@ def flash_times(dtype) -> dict:
         t[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes \
             else "bytes"
         t[f"{name}_flops"] = flops
-    log(f"[times] flash_attention {FA_PATH} {str(dtype)[6:]} causal: "
-        f"forward {t['fwd_ms']:.4f} ms (plain {t['plain_fwd_ms']:.4f}, "
-        f"sdpa {t['sdpa_fwd_ms']:.4f}, bound {t['fwd_bound_ms']:.4f} by "
-        f"{t['fwd_bound_by']}: {flops_fwd / 1e9:.1f} GFLOP, "
-        f"{flops_fwd / t['fwd_ms'] / 1e9:.2f} TFLOP/s); backward "
-        f"{t['bwd_ms']:.4f} ms (plain {t['plain_bwd_ms']:.4f}, sdpa "
-        f"{t['sdpa_bwd_ms']:.4f}, bound {t['bwd_bound_ms']:.4f}); forward+"
-        f"backward through autograd {t['fwd_bwd_ms']:.4f} ms")
-    del q, k, v, do, out, lse, leaves, qh, kh, vh, doh, lib, lib_out
+    msg = (f"[times] flash_attention {shape} {str(dtype)[6:]} causal "
+           f"window={window}: forward {t['fwd_ms']:.4f} ms (plain "
+           f"{t['plain_fwd_ms']:.4f}, sdpa {t['sdpa_fwd_ms']:.4f}, bound "
+           f"{t['fwd_bound_ms']:.4f} by {t['fwd_bound_by']}: "
+           f"{flops_fwd / 1e9:.1f} GFLOP, "
+           f"{flops_fwd / t['fwd_ms'] / 1e9:.2f} TFLOP/s)")
+    if backward:
+        msg += (f"; backward {t['bwd_ms']:.4f} ms (plain "
+                f"{t['plain_bwd_ms']:.4f}, sdpa {t['sdpa_bwd_ms']:.4f}, "
+                f"bound {t['bwd_bound_ms']:.4f}); forward+backward through "
+                f"autograd {t['fwd_bwd_ms']:.4f} ms")
+    log(msg)
     torch.cuda.empty_cache()
     return t
 
@@ -1063,7 +1433,50 @@ def wkv_times() -> dict:
     return t
 
 
-def serve_profile(n_decode=4) -> None:
+def rglru_times() -> dict:
+    """The RG-LRU scan kernel at the recurrentgemma path's shape, float32
+    a and b as the model gives them, beside its plain version and the
+    bound.  No single PyTorch call computes the recurrence, so there is no
+    library time."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
+    B, S, D = RG_SCAN_PATH
+    a, b = _scan_inputs(4, RG_SCAN_PATH, torch.float32)
+    counts = read_counts()
+    t = {"ms": time_ms(lambda: rglru_scan(a, b), 30),
+         "warm_ms": time_ms(lambda: rglru_scan(a, b), 30, cold=False),
+         "plain_ms": time_ms(lambda: rglru_ref(a, b), 3)}
+    set_counts(counts)                   # these launches are not a path's
+    # a and b read once, out and h_last written once; a multiply and an
+    # add per element
+    n_bytes = 3 * B * S * D * a.element_size() + 4 * B * D
+    flops = 2 * B * S * D
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes=n_bytes, flops=flops)
+    log(f"[times] rglru_scan {RG_SCAN_PATH} f32: kernel {t['ms']:.5f} ms "
+        f"(inputs in L2: {t['warm_ms']:.5f}), plain {t['plain_ms']:.3f} ms, "
+        f"library none; bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
+        f"({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 TB/s; "
+        f"{flops / 1e6:.1f} MFLOP -> {t_ops:.5f} ms at 67 TFLOP/s) -> "
+        f"{t['bound_ms'] / t['ms']:.1%} of the bound, "
+        f"{n_bytes / t['ms'] / 1e9:.3f} TB/s")
+    del a, b
+    torch.cuda.empty_cache()
+    return t
+
+
+#: kernel families of a serve profile: the port's kernels by a piece of
+#: their names, then the matrix products, then the rest
+SERVE_FAMILIES = {"rwkv6-1.6b": {"wkv": "wkv_fwd"},
+                  "recurrentgemma-2b": {"rglru": "rglru_scan_kernel",
+                                        "flash_attention": "fa_fwd"}}
+
+
+def serve_profile(cfg, params, n_decode=4) -> None:
     """One prefill of the serve path's batch (4 x 1,024 tokens), then a
     few decode steps, each under ``torch.profiler``: device time by kernel
     family and the share of the window in which the card ran no kernel
@@ -1074,11 +1487,11 @@ def serve_profile(n_decode=4) -> None:
 
     from repro_torch.models.transformer import (decode_step, model_specs,
                                                 pad_cache, prefill)
-    cfg = serve_config()
-    params = serve_params(cfg, "cuda")
-    # weights of the layers' matrix products (w*, not the mixes mu)
-    mm_params = sum(math.prod(sp.shape) for unit in model_specs(cfg)[
-        "groups"][0].values() for part in unit.values()
+    # weights of the layers' matrix products (2-D w*, not the mixes mu or
+    # the per-head gate blocks), over every group's layers
+    mm_params = sum(
+        math.prod(sp.shape) for group in model_specs(cfg)["groups"]
+        for unit in group.values() for part in unit.values()
         for key, sp in part.items() if key.startswith("w") and
         len(sp.shape) == 3)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -1116,17 +1529,20 @@ def serve_profile(n_decode=4) -> None:
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if not kernels:
-            log(f"[times] serve {name} profile ({what}): {wall:.2f} ms host "
-                f"time; no device events recorded, so device time by kernel "
-                f"and the idle share are not measured")
+            log(f"[times] {cfg.name} {name} profile ({what}): {wall:.2f} ms "
+                f"host time; no device events recorded, so device time by "
+                f"kernel and the idle share are not measured")
             continue
-        fam = {"wkv": 0.0, "matmul": 0.0, "other": 0.0}
+        ours = SERVE_FAMILIES[cfg.name]
+        fam = dict.fromkeys([*ours, "matmul", "other"], 0.0)
         for e in kernels:
             low = e.name.lower()
-            key = ("wkv" if "wkv_fwd" in e.name else
-                   "matmul" if any(w in low for w in (
-                       "gemm", "xmma", "cutlass", "cublas", "nvjet"))
-                   else "other")
+            key = next((k for k, piece in ours.items() if piece in e.name),
+                       None)
+            if key is None:
+                key = "matmul" if any(w in low for w in (
+                    "gemm", "xmma", "cutlass", "cublas", "nvjet")) \
+                    else "other"
             fam[key] += e.time_range.elapsed_us() / 1e3
         busy = sum(fam.values())
         rate = ""
@@ -1135,8 +1551,9 @@ def serve_profile(n_decode=4) -> None:
             rate = (f"; the layers' matrix products are {flops / 1e12:.2f} "
                     f"TFLOP -> {flops / fam['matmul'] / 1e9:.1f} TFLOP/s "
                     f"over the matmul kernels' time")
-        log(f"[times] serve {name} profile ({what}): {wall:.2f} ms host "
-            f"time, {busy:.2f} ms of kernels ({len(kernels)} launches) -> "
+        log(f"[times] {cfg.name} {name} profile ({what}): {wall:.2f} ms "
+            f"host time, {busy:.2f} ms of kernels ({len(kernels)} launches) "
+            f"-> "
             f"the card idle {max(0.0, 1 - busy / wall):.1%}; "
             + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
                         for k, v in fam.items()) + rate)
@@ -1269,7 +1686,8 @@ def lm_shard_profile():
     torch.cuda.empty_cache()
 
 
-def times_phase(mlp, lm, serve_out, errs, fa_errs, wkv_err) -> list:
+def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
+                rg_errs) -> list:
     from collections import Counter
 
     import numpy as np
@@ -1314,11 +1732,20 @@ def times_phase(mlp, lm, serve_out, errs, fa_errs, wkv_err) -> list:
     log(f"[times] lm peak device memory over the path: {peak} bytes "
         f"({peak / 1e9:.2f} GB)")
     wk = wkv_times()
-    serve_profile()
+    serve_profile(serve_config(), serve_params(serve_config(), "cuda"))
     n_pre = serve_out["res"]["prefills"]
     log(f"[times] serve WKV per prefill, from the kernel's timed cost x its "
         f"launches: {serve_out['launches']['rwkv6_wkv'] * wk['ms'] / n_pre:.3f}"
         f" ms of {float(np.median(serve_out['res']['prefill_ms'])):.2f} ms")
+    rg = rglru_times()
+    fa256 = flash_times(torch.bfloat16, RG_FA_PATH, RG_WINDOW,
+                        backward=False)
+    serve_profile(rg_config(), rg_params(rg_config(), "cuda"))
+    n_pre, rl = rg_out["res"]["prefills"], rg_out["launches"]
+    log(f"[times] rg per prefill, from the kernels' timed cost x their "
+        f"launches: RG-LRU {rl['rglru_scan'] * rg['ms'] / n_pre:.3f} ms, "
+        f"attention {rl['flash_attention_fwd'] * fa256['fwd_ms'] / n_pre:.3f}"
+        f" ms of {float(np.median(rg_out['res']['prefill_ms'])):.2f} ms")
 
     src = "src/repro_torch/kernels"
     return [{
@@ -1353,7 +1780,23 @@ def times_phase(mlp, lm, serve_out, errs, fa_errs, wkv_err) -> list:
         "launches": serve_out["launches"]["rwkv6_wkv"],
         "max_abs_err": wkv_err, "ms": wk["ms"], "plain_ms": wk["plain_ms"],
         "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": f"{src}/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:54",
+        "launches": rg_out["launches"]["rglru_scan"],
+        "max_abs_err": rg_errs["scan"], "ms": rg["ms"],
+        "plain_ms": rg["plain_ms"], "bound_ms": rg["bound_ms"],
+        "bound_by": rg["bound_by"], "library_ms": None}, {
+        "name": "flash_attention_fwd_d256", "route": "cuda",
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:88",
+        "launches": rg_out["launches"]["flash_attention_fwd"],
+        "max_abs_err": rg_errs["fa256"], "ms": fa256["fwd_ms"],
+        "plain_ms": fa256["plain_fwd_ms"],
+        "bound_ms": fa256["fwd_bound_ms"],
+        "bound_by": fa256["fwd_bound_by"],
+        "library_ms": fa256["sdpa_fwd_ms"]}]
 
 
 def main() -> int:
@@ -1363,11 +1806,14 @@ def main() -> int:
     errs = kernel_phase()
     fa_errs = flash_kernel_phase()
     wkv_err = wkv_kernel_phase()
+    rg_errs = {"scan": rglru_kernel_phase(), "fa256": flash256_kernel_phase()}
     mlp = mlp_phase()
     lm = lm_phase()
     tiny_phase()
     served = serve_phase()
-    kernels = times_phase(mlp, lm, served, errs, fa_errs, wkv_err)
+    rg_out = rg_serve_phase()
+    kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
+                          rg_errs)
     import torch
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -3,9 +3,9 @@
 A plain copy of ``repro.configs.base``.  Each architecture is a
 ``ModelConfig`` in ``repro_torch/configs/<arch>.py``, registered with its
 full and reduced (CPU smoke-test) sizes.  The port registers only the
-architectures whose layers it has: so far ``stablelm-1.6b`` (dense) and
-``rwkv6-1.6b`` (ssm); the others wait for their mixers (ROADMAP.md,
-queue 1).
+architectures whose layers it has: so far ``stablelm-1.6b`` (dense),
+``rwkv6-1.6b`` (ssm) and ``recurrentgemma-2b`` (hybrid); the others wait
+for their mixers (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -140,5 +140,5 @@ def _ensure_loaded():
     # every module, each time (imports are cached): one config module
     # imported on its own must not hide the others
     import importlib
-    for mod in ["rwkv6_1_6b", "stablelm_1_6b"]:
+    for mod in ["recurrentgemma_2b", "rwkv6_1_6b", "stablelm_1_6b"]:
         importlib.import_module(f"repro_torch.configs.{mod}")

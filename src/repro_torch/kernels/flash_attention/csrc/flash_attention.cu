@@ -19,8 +19,20 @@
 // head of query head (kv, g) is `kv` -- the kernel indexes it and never
 // broadcasts k or v G times, as the Pallas wrapper does.  Types: float32
 // or bfloat16 in and out, float32 arithmetic throughout.  D is a multiple
-// of 8, at most 128; S is any length (the ragged last tile is masked in the
-// kernel, never padded in memory); offsets are 64-bit.
+// of 8, at most 256 in the forward and at most 128 in the backward; S is
+// any length (the ragged last tile is masked in the kernel, never padded in
+// memory); offsets are 64-bit.
+//
+// Head width.  The tiles sit in shared memory as float32 rows of D + 1, so
+// the forward's three 64-row tiles and its score tile take
+// 4·(3·64·(D + 1) + 64·65 + 128) bytes: 214,528 at D = 256 (the `local`
+// layers of recurrentgemma-2b, MQA at 256), under the 232,448 a block may
+// opt into, at one block per SM; each thread then holds a 4 x 16 slice of
+// the output in registers (NJ = 16).  The backward's passes hold one more
+// (dq) or two more (dk/dv) tiles, about 281 KB and 297 KB at D = 256, which
+// do not fit: they stop at 128, and the launcher refuses a wider head
+// before any launch.  A wider backward needs D split across blocks or bf16
+// tiles in shared memory (ROADMAP.md).
 //
 // What bounds it, and what the design does about it.  Causal attention
 // does S(S+1)/2·H·4D operations against 4·S·H·D elements moved: at the
@@ -539,19 +551,29 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// NJ = columns of D per thread / 16, rounded up to a power of two
-template <typename F>
-cudaError_t dispatch(int dtype, int D, const F& f) {
-  if (dtype == 0) {
-    if (D <= 16) return f.template run<float, 1>();
-    if (D <= 32) return f.template run<float, 2>();
-    if (D <= 64) return f.template run<float, 4>();
-    return f.template run<float, 8>();
+// widest head of each direction (see "Head width" above)
+constexpr int kMaxFwdD = 256;
+constexpr int kMaxBwdD = 128;
+
+// NJ = columns of D per thread / 16, rounded up to a power of two; only
+// the instances up to kMaxNJ are built
+template <int kMaxNJ, typename T, typename F>
+cudaError_t dispatch_nj(int D, const F& f) {
+  if (D <= 16) return f.template run<T, 1>();
+  if (D <= 32) return f.template run<T, 2>();
+  if (D <= 64) return f.template run<T, 4>();
+  if constexpr (kMaxNJ <= 8) {
+    return f.template run<T, 8>();
+  } else {
+    if (D <= 128) return f.template run<T, 8>();
+    return f.template run<T, 16>();
   }
-  if (D <= 16) return f.template run<__nv_bfloat16, 1>();
-  if (D <= 32) return f.template run<__nv_bfloat16, 2>();
-  if (D <= 64) return f.template run<__nv_bfloat16, 4>();
-  return f.template run<__nv_bfloat16, 8>();
+}
+
+template <int kMaxNJ, typename F>
+cudaError_t dispatch(int dtype, int D, const F& f) {
+  if (dtype == 0) return dispatch_nj<kMaxNJ, float>(D, f);
+  return dispatch_nj<kMaxNJ, __nv_bfloat16>(D, f);
 }
 
 struct FwdArgs {
@@ -575,9 +597,9 @@ struct BwdArgs {
   }
 };
 
-bool bad_args(int dtype, const Shape& sh) {
+bool bad_args(int dtype, const Shape& sh, int max_d) {
   return (dtype != 0 && dtype != 1) || sh.B < 1 || sh.S < 1 || sh.KV < 1 ||
-         sh.G < 1 || sh.D < 8 || sh.D > 128 || sh.D % 8 != 0 ||
+         sh.G < 1 || sh.D < 8 || sh.D > max_d || sh.D % 8 != 0 ||
          sh.window < 0 || (int64_t)sh.KV * sh.G > 65535 || sh.B > 65535;
 }
 
@@ -590,9 +612,9 @@ int fa_fwd(int dtype, const void* q, const void* k, const void* v,
            void* out, void* lse, int B, int S, int KV, int G, int D,
            float scale, int causal, int window, void* stream) {
   const Shape sh{B, S, KV, G, D, scale, causal, window};
-  if (bad_args(dtype, sh)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, sh, kMaxFwdD)) return (int)cudaErrorInvalidValue;
   const FwdArgs f{q, k, v, out, lse, sh, (cudaStream_t)stream};
-  return (int)dispatch(dtype, D, f);
+  return (int)dispatch<kMaxFwdD / 16>(dtype, D, f);
 }
 
 // dvec is float32 scratch of lse's shape (B, KV, G, S).
@@ -601,10 +623,10 @@ int fa_bwd(int dtype, const void* q, const void* k, const void* v,
            void* dq, void* dk, void* dv, int B, int S, int KV, int G, int D,
            float scale, int causal, int window, void* stream) {
   const Shape sh{B, S, KV, G, D, scale, causal, window};
-  if (bad_args(dtype, sh)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, sh, kMaxBwdD)) return (int)cudaErrorInvalidValue;
   const BwdArgs f{q, k, v, out, dout, lse, dvec, dq, dk, dv, sh,
                   (cudaStream_t)stream};
-  return (int)dispatch(dtype, D, f);
+  return (int)dispatch<kMaxBwdD / 16>(dtype, D, f);
 }
 
 const char* fa_error_string(int err) {

@@ -7,6 +7,9 @@ stream, or an error; on a CPU tensor they are the plain versions of
 :mod:`.ref`.  ``flash_attention.fwd_launches`` and ``.bwd_launches`` count
 the kernels' launches (one forward kernel per forward call; the dq and
 dk/dv kernels of one backward call count once), not the CPU path's calls.
+The forward takes a head width up to 256, the backward up to 128 (its
+tiles do not fit in shared memory above that, ``csrc/flash_attention.cu``
+says why); a wider backward on the card raises before any launch.
 """
 from __future__ import annotations
 
@@ -19,13 +22,15 @@ import torch
 from repro_torch.kernels._build import load_library
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
-__all__ = ["MAX_HEAD_DIM", "SOURCE", "flash_attention",
+__all__ = ["MAX_BWD_HEAD_DIM", "MAX_HEAD_DIM", "SOURCE", "flash_attention",
            "flash_attention_bwd", "flash_attention_fwd"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
-#: Widest head the kernel takes (its rows sit in shared memory).
-MAX_HEAD_DIM = 128
+#: Widest head the forward kernel takes (its rows sit in shared memory).
+MAX_HEAD_DIM = 256
+#: Widest head the backward kernels take.
+MAX_BWD_HEAD_DIM = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -118,6 +123,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        window=window, q_chunk=q_chunk,
                                        kv_chunk=kv_chunk)
+    if D > MAX_BWD_HEAD_DIM:
+        raise NotImplementedError(
+            f"the flash-attention backward kernel takes a head width up to "
+            f"{MAX_BWD_HEAD_DIM}, not {D}: its tiles would not fit in shared "
+            f"memory; a wider backward is open work (ROADMAP.md)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     dvec = torch.empty_like(lse)

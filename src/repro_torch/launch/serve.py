@@ -13,6 +13,7 @@ The loop is :func:`serve`; :func:`main` is the reference's command line
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
-"""Decoder transformer: dense and RWKV6 layers, for training and serving.
+"""Decoder transformer: dense, RG-LRU and RWKV6 layers, for training and
+serving.
 
 The torch counterpart of ``repro.models.transformer`` for configs whose
-layers are attention (``attn``/``local``) with a dense or gated FFN, or
-RWKV6 time mix (``rwkv``) with its channel mix, on token inputs: such as
-``stablelm-1.6b`` and ``rwkv6-1.6b``.  The parameter tree is the
+layers are attention (``attn``/``local``) or the RG-LRU recurrent block
+(``rec``) with a dense or gated FFN, or RWKV6 time mix (``rwkv``) with its
+channel mix, on token inputs: such as ``stablelm-1.6b``,
+``recurrentgemma-2b`` and ``rwkv6-1.6b``.  The parameter tree is the
 reference's: ``{"embed", "groups", "final_norm", "lm_head"}``, where
 ``"groups"`` is a list with one dict per repeating layer unit, each leaf
 stacked on a leading layer axis; so :func:`~repro_torch.train.flatten_grads`
@@ -32,14 +34,25 @@ exact where the reference's is not.  The kernel is forward-only:
 training an ``rwkv`` config on the card raises (the reference trains it
 through ``wkv_chunked``, whose backward has no kernel).
 
+The ``rec`` block (``_rec_train``) runs its scan through
+``repro_torch.kernels.rglru_scan`` by way of ``models/rglru.py``: the CUDA
+kernel on the card, the plain recurrence on the CPU.  That kernel is
+forward-only too, so training a ``rec`` config on the card raises.  Its
+conv state keeps the last ``conv_width - 1`` pre-conv inputs, left-padded
+with zeros for a prompt shorter than that (the reference keeps fewer rows,
+and its decode step then fails on them).
+
 Serving: ``prefill`` (a forward that collects the caches), ``pad_cache``,
 ``init_cache`` and ``decode_step`` (one token, attention over the k/v
 cache in plain PyTorch as the reference's ``decode_attention`` is plain
-jnp; RWKV6 through ``wkv_step``).
+jnp; RG-LRU through ``rglru_step``; RWKV6 through ``wkv_step``).  A
+``local`` layer's cache holds min(tokens, window) slots: ``pad_cache``
+grows it up to the window, so that decode never overwrites a slot still
+inside the window (the reference keeps a prompt shorter than the window
+at its length, and its decode then drops tokens that are in the window).
 
-Not here yet (each raises ``NotImplementedError``): the ``rec`` mixer,
-mixture-of-experts FFNs and the audio/vision frontends (ROADMAP.md,
-queue 1).
+Not here yet (each raises ``NotImplementedError``): mixture-of-experts
+FFNs and the audio/vision frontends (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import wkv
+from repro_torch.models import rglru
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.common import (Spec, activation, apply_rope,
                                        init_from_specs, layer_norm, rms_norm,
@@ -77,7 +91,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(f"the {cfg.frontend} frontend is {_LATER}")
     for mixer, ffn in cfg.layer_kinds():
-        if mixer not in ("attn", "local", "rwkv"):
+        if mixer not in ("attn", "local", "rec", "rwkv"):
             raise NotImplementedError(f"the {mixer!r} mixer is {_LATER}")
         if ffn != "dense" and mixer != "rwkv":
             raise NotImplementedError(f"the {ffn!r} FFN is {_LATER}")
@@ -137,6 +151,27 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     return p
 
 
+def _rec_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    dr = cfg.d_rnn or d
+    hr = cfg.rnn_heads
+    dh = dr // hr
+    return {
+        "ln": _norm_spec(cfg),
+        "w_in": Spec((d, dr), ("embed", "rnn")),
+        "w_gate": Spec((d, dr), ("embed", "rnn")),
+        "conv_w": Spec((cfg.conv_width, dr), (None, "rnn"), "normal", 0.3),
+        "conv_b": Spec((dr,), ("rnn",), "zeros"),
+        "w_a": Spec((hr, dh, dh), ("rnn_heads", None, None)),
+        "b_a": Spec((hr, dh), ("rnn_heads", None), "zeros"),
+        "w_x": Spec((hr, dh, dh), ("rnn_heads", None, None)),
+        "b_x": Spec((hr, dh), ("rnn_heads", None), "zeros"),
+        "lam": Spec((hr, dh), ("rnn_heads", None), "ones"),
+        "w_out": Spec((dr, d), ("rnn", "embed"), "normal",
+                      1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
 def _rwkv_specs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     H, hd, r = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.lora_rank
@@ -158,6 +193,8 @@ def _rwkv_specs(cfg: ModelConfig) -> dict:
 
 
 def _mixer_specs(cfg: ModelConfig, mixer: str) -> dict:
+    if mixer == "rec":
+        return _rec_specs(cfg)
     return _rwkv_specs(cfg) if mixer == "rwkv" else _attn_specs(cfg)
 
 
@@ -306,6 +343,39 @@ def _attn_decode(x, p, cfg: ModelConfig, mixer, cache, pos: int):
     return x + o, {"k": k_cache, "v": v_cache}
 
 
+def _rec_train(x, p, cfg: ModelConfig):
+    """The RG-LRU block over a whole sequence; its scan is the kernel on
+    the card and the plain recurrence on the CPU."""
+    B, S, d = x.shape
+    dr = cfg.d_rnn or d
+    hr = cfg.rnn_heads
+    W = cfg.conv_width
+    h = _norm(x, p["ln"], cfg)
+    xb = h @ p["w_in"]
+    gate = activation("gelu")(h @ p["w_gate"])
+    # the last W - 1 pre-conv inputs, zeros before the first token
+    tail = F.pad(xb, (0, 0, max(0, W - 1 - S), 0))
+    conv_state = tail[:, tail.shape[1] - (W - 1):]
+    xb = rglru.causal_conv1d(xb, p["conv_w"], p["conv_b"])
+    y, h_last = rglru.rglru_scan(xb.reshape(B, S, hr, dr // hr), p)
+    o = (y.reshape(B, S, dr) * gate) @ p["w_out"]
+    return x + o, {"h": h_last.float(), "conv": conv_state}
+
+
+def _rec_decode(x, p, cfg: ModelConfig, cache):
+    B, _, d = x.shape
+    dr = cfg.d_rnn or d
+    hr = cfg.rnn_heads
+    h = _norm(x, p["ln"], cfg)[:, 0]
+    xb = h @ p["w_in"]
+    gate = activation("gelu")(h @ p["w_gate"])
+    xb, conv_state = rglru.conv1d_step(xb, cache["conv"].to(xb.dtype),
+                                       p["conv_w"], p["conv_b"])
+    y, h_new = rglru.rglru_step(xb.reshape(B, hr, dr // hr), cache["h"], p)
+    o = (y.reshape(B, dr) * gate) @ p["w_out"]
+    return x + o[:, None], {"h": h_new.float(), "conv": conv_state}
+
+
 def _rwkv_mix(h, prev, mu):
     """Token-shift lerp; h: (B, S, d), prev: (B, d) state; mu: (d,)."""
     hh = torch.cat([prev[:, None].to(h.dtype), h[:, :-1]], dim=1)
@@ -414,6 +484,12 @@ def _apply_unit(x, unit_params, cfg: ModelConfig, kinds, positions,
                                             cache_j["mix"])
             else:
                 x, mix_cache = _rwkv_train(x, lp["mixer"], cfg)
+        elif mixer == "rec":
+            if decode:
+                x, mix_cache = _rec_decode(x, lp["mixer"], cfg,
+                                           cache_j["mix"])
+            else:
+                x, mix_cache = _rec_train(x, lp["mixer"], cfg)
         elif decode:
             x, mix_cache = _attn_decode(x, lp["mixer"], cfg, mixer,
                                         cache_j["mix"], pos)
@@ -550,6 +626,11 @@ def _layer_cache(cfg: ModelConfig, mixer, B: int, cap: int, n: int,
         d, hd = cfg.d_model, cfg.rwkv_head_dim
         return {"mix": {"S": zeros(B, d // hd, hd, hd), "tm": zeros(B, d)},
                 "ffn": {"cm": zeros(B, d)}}
+    if mixer == "rec":
+        dr = cfg.d_rnn or cfg.d_model
+        return {"mix": {"h": zeros(B, cfg.rnn_heads, dr // cfg.rnn_heads),
+                        "conv": zeros(B, cfg.conv_width - 1, dr,
+                                      dtype=_dtype(cfg.compute_dtype))}}
     c = min(cap, cfg.window) if (mixer == "local" and cfg.window) else cap
     shape, cdt = (B, c, cfg.n_kv_heads, cfg.head_dim), \
         _dtype(cfg.compute_dtype)
@@ -596,15 +677,24 @@ def prefill(params, batch, cfg: ModelConfig):
 
 
 def pad_cache(caches: list, cfg: ModelConfig, extra: int) -> list:
-    """Grow full-attention k/v caches by ``extra`` decode slots; ring
-    (local-window) and recurrent caches are fixed-size and kept."""
+    """Grow k/v caches for ``extra`` decode slots: a full-attention cache
+    by ``extra``, a local-window cache up to ``min(cap + extra, window)``
+    (a prompt shorter than the window keeps one slot per token, so decode
+    writes position ``pos`` at slot ``pos`` until the window fills, and a
+    ring after that); recurrent caches are fixed-size and kept."""
     out = []
     for g, gc in zip(group_layout(cfg), caches):
         unit = {}
         for j, (mixer, _) in enumerate(g.kinds):
             e = gc[f"l{j}"]
+            grow = 0
             if mixer == "attn" or (mixer == "local" and not cfg.window):
-                e = {"mix": {n: F.pad(t, (0, 0, 0, 0, 0, extra))
+                grow = extra
+            elif mixer == "local":
+                cap = e["mix"]["k"].shape[2]
+                grow = max(0, min(cap + extra, cfg.window) - cap)
+            if grow:
+                e = {"mix": {n: F.pad(t, (0, 0, 0, 0, 0, grow))
                              for n, t in e["mix"].items()}}
             unit[f"l{j}"] = e
         out.append(unit)
@@ -615,8 +705,9 @@ def pad_cache(caches: list, cfg: ModelConfig, extra: int) -> list:
 def decode_step(params, tokens, caches: list, pos: int, cfg: ModelConfig):
     """One serve step: ``tokens`` (B, 1) at position ``pos`` -> ``(logits
     (B, V) float32, new caches)``.  Full-attention layers write the token
-    at ``pos`` (callers keep pos < cap); local layers use a ring buffer
-    of size ``window``; RWKV layers step their state."""
+    at ``pos`` (callers keep pos < cap); local layers write slot ``pos``
+    until the cache holds ``window`` slots and use it as a ring after
+    that; RG-LRU and RWKV layers step their state."""
     _check_supported(cfg)
     dt = _dtype(cfg.compute_dtype)
     # gather, then cast: the reference's take of the cast table, cheaper

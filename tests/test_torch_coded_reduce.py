@@ -117,9 +117,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     from repro_torch.kernels.flash_attention.ops import SOURCE as FA_SOURCE
+    from repro_torch.kernels.rglru_scan.ops import SOURCE as RG_SOURCE
     from repro_torch.kernels.rwkv6_wkv.ops import SOURCE as WKV_SOURCE
-    assert kernel_sources() == [SOURCE, FA_SOURCE, WKV_SOURCE]
-    assert SOURCE.exists() and FA_SOURCE.exists() and WKV_SOURCE.exists()
+    assert kernel_sources() == [SOURCE, FA_SOURCE, WKV_SOURCE, RG_SOURCE]
+    assert all(s.exists() for s in kernel_sources())
     lib = _build.library_path(SOURCE)
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert lib == _build.library_path(SOURCE)            # deterministic

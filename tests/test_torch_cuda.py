@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions, the
-coded-training bridge decoding through them, and the rwkv6 model on the
-card against the CPU.
+coded-training bridge decoding through them, and the rwkv6 and
+recurrentgemma models on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -265,6 +265,130 @@ def test_rwkv_model_on_card_matches_cpu_and_counts_launches(cuda_device):
                                     cfg)
         assert wkv.launches == before + (cfg.n_layers if dev != "cpu"
                                          else 0)
+        steps = [last]
+        for i in range(2):
+            lg, caches = decode_step(p, toks[:, 68 + i:69 + i].to(dev),
+                                     caches, pos + i, cfg)
+            steps.append(lg)
+        out.append(torch.stack(steps).cpu().numpy())
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# the RG-LRU scan: kernel vs its plain version (the sequential
+# recurrence).  Both multiply, then add, in float32, step by step, so
+# they agree bit for bit; the bound stated is the reference's kernel-test
+# one (float32 2e-5 on the output's scale, bfloat16 2e-2).
+# --------------------------------------------------------------------- #
+def _scan_inputs(device, shape, dtype, a_lo=0.5, a_hi=0.999, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(a_lo, a_hi, shape).astype(np.float32)
+    b = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return (torch.from_numpy(a).to(device, getattr(torch, dtype)),
+            torch.from_numpy(b).to(device, getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("shape,a_lo,a_hi", [
+    ((2, 128, 64), 0.5, 0.999), ((1, 256, 128), 0.5, 0.999),
+    ((3, 64, 256), 0.5, 0.999),                  # tests/test_kernels.py
+    ((2, 1000, 250), 0.5, 0.999),                # ragged S and D
+    ((1, 4096, 96), 0.9999, 1.0),                # a -> 1: |h| grows
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_kernel_matches_plain_on_card(cuda_device, shape, a_lo, a_hi,
+                                            dtype):
+    from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
+    a, b = _scan_inputs(cuda_device, shape, dtype, a_lo, a_hi)
+    before = rglru_scan.launches
+    out, h_last = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    out_ref, h_ref = rglru_ref(a, b)
+    assert out.dtype == a.dtype and h_last.dtype == torch.float32
+    scale = max(1.0, float(out_ref.float().abs().max()))
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else dict(rtol=2e-5, atol=2e-5 * scale))
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               out_ref.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(h_last.cpu().numpy(), h_ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_rglru_kernel_refuses_what_needs_a_gradient(cuda_device):
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    a, b = _scan_inputs(cuda_device, (1, 8, 16), "float32")
+    before = rglru_scan.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        rglru_scan(a.requires_grad_(True), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.detach().transpose(1, 2), b.transpose(1, 2))
+    assert rglru_scan.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_matches_plain_on_card(cuda_device,
+                                                            dtype):
+    """recurrentgemma-2b's local layers: MQA (G = 10) at head width 256,
+    causal, a window shorter than the sequence and a ragged last tile."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_fwd, flash_attention_fwd_ref)
+    q, k, v, _ = _attention_inputs(cuda_device, (1, 300, 1, 10, 256),
+                                   (1, 300, 1, 256), dtype)
+    kw = dict(causal=True, window=100, q_chunk=64, kv_chunk=64)
+    before = flash_attention.fwd_launches
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.fwd_launches == before + 1
+    out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               out_ref.float().cpu().numpy(),
+                               **_fa_tol(dtype, False))
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_backward_refuses_head_dim_256(cuda_device):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+    q, k, v, do = _attention_inputs(cuda_device, (1, 64, 1, 2, 256),
+                                    (1, 64, 1, 256), "float32")
+    out, lse = flash_attention_fwd(q, k, v)
+    before = flash_attention.bwd_launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention_bwd(q, k, v, out, lse, do)
+    assert flash_attention.bwd_launches == before
+
+
+def test_recurrentgemma_model_on_card_matches_cpu_and_counts_launches(
+        cuda_device):
+    """REDUCED recurrentgemma in float32: prefill past the window and two
+    decode steps on the card (the RG-LRU kernel once per rec layer and the
+    attention forward once per local layer, each prefill) against the CPU
+    (the plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs.recurrentgemma_2b import REDUCED
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                pad_cache, prefill)
+    from repro_torch.optim.optimizers import tree_map
+    cfg = dataclasses.replace(REDUCED, compute_dtype="float32")
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 70)))
+    out = []
+    for p, dev in ((p_gpu, cuda_device), (p_cpu, "cpu")):
+        before = (rglru_scan.launches, flash_attention.fwd_launches)
+        last, caches, pos = prefill(p, {"tokens": toks[:, :68].to(dev)},
+                                    cfg)
+        on_card = dev != "cpu"
+        assert (rglru_scan.launches, flash_attention.fwd_launches) == (
+            before[0] + on_card * kinds.count("rec"),
+            before[1] + on_card * kinds.count("local"))
+        caches = pad_cache(caches, cfg, extra=2)
         steps = [last]
         for i in range(2):
             lg, caches = decode_step(p, toks[:, 68 + i:69 + i].to(dev),

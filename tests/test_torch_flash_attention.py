@@ -92,6 +92,34 @@ def test_gqa_layout_matches_model_path():
     np.testing.assert_allclose(_np(got), np.asarray(want), **F32_FWD_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mqa_head_dim_256_with_window_matches_model_path(dtype):
+    """recurrentgemma-2b's local layers: one kv head for G = 10 query
+    heads of width 256, a sliding window shorter than the sequence."""
+    rng = np.random.default_rng(2)
+    B, S, KV, G, D = 1, 192, 1, 10, 256
+    qj, qt = _draw(rng, (B, S, KV, G, D), dtype)
+    kj, kt = _draw(rng, (B, S, KV, D), dtype)
+    vj, vt = _draw(rng, (B, S, KV, D), dtype)
+    want = ref_flash(qj, kj, vj, causal=True, window=48, q_chunk=64,
+                     kv_chunk=64)
+    got = port_model_fa(qt, kt, vt, causal=True, window=48, q_chunk=64,
+                        kv_chunk=64)
+    assert got.dtype == qt.dtype
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+def test_kernel_states_its_head_width_limits():
+    from repro_torch.kernels.flash_attention.ops import (MAX_BWD_HEAD_DIM,
+                                                         MAX_HEAD_DIM,
+                                                         SOURCE)
+    text = SOURCE.read_text()
+    assert (MAX_HEAD_DIM, MAX_BWD_HEAD_DIM) == (256, 128)
+    assert f"kMaxFwdD = {MAX_HEAD_DIM};" in text
+    assert f"kMaxBwdD = {MAX_BWD_HEAD_DIM};" in text
+
+
 # --------------------------------------------------------------------- #
 # backward: the cases of tests/test_attention_vjp.py
 # --------------------------------------------------------------------- #

@@ -47,5 +47,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.rwkv6_1_6b", "repro_torch.models.rwkv6",
                 "repro_torch.kernels.rwkv6_wkv.ops",
                 "repro_torch.kernels.rwkv6_wkv.ref",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve",
+                "repro_torch.configs.recurrentgemma_2b",
+                "repro_torch.models.rglru",
+                "repro_torch.kernels.rglru_scan.ops",
+                "repro_torch.kernels.rglru_scan.ref"):
         assert mod in got["imported"]

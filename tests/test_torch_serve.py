@@ -4,7 +4,12 @@ The dense decode path (``_attn_decode`` with its ring buffer for local
 layers, ``decode_attention``) at ``tests/test_serving.py``'s TINY, float32
 compute: prefill logits and caches, ``pad_cache`` and 8 decode steps
 against the reference at rtol/atol 1e-4, and the greedy teacher-forced
-consistency test ported.  ``jain_index`` against the reference's
+consistency test ported.  Where the prompt is shorter than a local
+layer's window the reference's decode drops tokens still inside the
+window (its ``pad_cache`` never grows a windowed cache); there the port's
+decode is held against its own forward instead, as it is at prompts
+below, at and above the window, and the reference's divergence is
+recorded.  ``jain_index`` against the reference's
 definition.  The admission loop: ``serve()`` and ``main`` against the
 reference's loop for the same seed, with equal admissions and served
 counts (the scheduler's decisions do not depend on the model).
@@ -74,6 +79,9 @@ def _assert_tree_close(ref_tree, port_tree):
     {"layer_pattern": ("local",), "window": 32},              # window > S
 ])
 def test_prefill_pad_and_decode_match_reference(variant):
+    """Prefill against the reference; ``pad_cache`` and decode against it
+    too where its local cache is right, else (the window > S case)
+    against the port's own forward."""
     rcfg, pcfg = _cfgs(**variant)
     tree, params = _params(rcfg, pcfg)
     S, n = 16, 8
@@ -86,6 +94,10 @@ def test_prefill_pad_and_decode_match_reference(variant):
     assert pos_p == int(pos_r) == S
     np.testing.assert_allclose(last_p.numpy(), np.asarray(last_r), **TOL)
     _assert_tree_close(caches_r, caches_p)
+    if rcfg.window > S:
+        got, want = _decode_vs_forward(params, pcfg, toks, S)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        return
     caches_r = ref_tf.pad_cache(caches_r, rcfg, extra=n)
     caches_p = port_tf.pad_cache(caches_p, pcfg, extra=n)
     _assert_tree_close(caches_r, caches_p)
@@ -98,6 +110,73 @@ def test_prefill_pad_and_decode_match_reference(variant):
         np.testing.assert_allclose(lp.numpy(), np.asarray(lr), **TOL,
                                    err_msg=f"decode step {i}")
     _assert_tree_close(caches_r, caches_p)
+
+
+def _decode_vs_forward(params, cfg, toks, S):
+    """Prefill ``toks[:, :S]``, then teacher-forced decode of the rest.
+    Returns the logits of prefill's last position and of every step, and
+    a fresh forward's logits at the same positions, each (B, n, V)."""
+    n = toks.shape[1] - S
+    last, caches, pos = port_tf.prefill(
+        params, {"tokens": torch.from_numpy(toks[:, :S])}, cfg)
+    caches = port_tf.pad_cache(caches, cfg, extra=n)
+    got = [last]
+    for i in range(n - 1):
+        lg, caches = port_tf.decode_step(
+            params, torch.from_numpy(toks[:, S + i:S + i + 1]), caches,
+            pos + i, cfg)
+        got.append(lg)
+    x, _ = port_tf.forward(params, {"tokens": torch.from_numpy(
+        toks[:, :-1])}, cfg)
+    return torch.stack(got, 1), x[:, S - 1:] @ params["lm_head"]
+
+
+@pytest.mark.parametrize("S,n", [(10, 14), (16, 8), (23, 9)])
+@pytest.mark.parametrize("pattern", [("local",), ("local", "attn")])
+def test_decode_matches_forward_across_the_window(pattern, S, n):
+    """Window 16: a prompt below it whose decode crosses the window's edge
+    (positions 10 to 23), one at it and one above it (a ring from
+    prefill), each decoding past a multiple of the window."""
+    _, pcfg = _cfgs(layer_pattern=pattern, window=16)
+    params = port_tf.init_params(pcfg, torch.Generator().manual_seed(1),
+                                 device="cpu")
+    toks = np.random.default_rng(S).integers(0, 128, (2, S + n)).astype(
+        np.int32)
+    got, want = _decode_vs_forward(params, pcfg, toks, S)
+    assert got.shape == want.shape == (2, n, pcfg.vocab)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    caches = port_tf.pad_cache(port_tf.prefill(
+        params, {"tokens": torch.from_numpy(toks[:, :S])}, pcfg)[1], pcfg,
+        extra=n)
+    assert caches[0]["l0"]["mix"]["k"].shape[2] == min(S + n, 16)
+
+
+def test_reference_local_cache_drops_tokens_inside_the_window():
+    """The reference's decode at a prompt shorter than the window: its
+    cache stays at the prompt's 16 slots, the step at pos = 16 writes over
+    slot 0 (token 0, still inside the window of 32), and its logits leave
+    a fresh forward's, by far more than the port's decode does."""
+    rcfg, pcfg = _cfgs(layer_pattern=("local",), window=32)
+    tree, params = _params(rcfg, pcfg)
+    S, n = 16, 8
+    toks = np.random.default_rng(0).integers(0, 128, (2, S + n)).astype(
+        np.int32)
+    got, want = _decode_vs_forward(params, pcfg, toks, S)
+    last, caches, pos = ref_tf.prefill(
+        tree, {"tokens": jnp.asarray(toks[:, :S])}, rcfg)
+    caches = ref_tf.pad_cache(caches, rcfg, extra=n)
+    assert caches[0]["l0"]["mix"]["k"].shape[2] == S
+    ref = [np.asarray(last)]
+    for i in range(n - 1):
+        lg, caches = ref_tf.decode_step(
+            tree, jnp.asarray(toks[:, S + i:S + i + 1]), caches, pos + i,
+            rcfg)
+        ref.append(np.asarray(lg))
+    ref_err = np.abs(np.stack(ref, 1) - want.numpy()).max(axis=(0, 2))
+    port_err = (got - want).abs().amax(dim=(0, 2)).numpy()
+    assert ref_err[0] < 1e-4                      # prefill is right
+    assert port_err.max() < 1e-4
+    assert ref_err[1:].min() > 1e-3               # every decode step is not
 
 
 def test_greedy_generation_is_deterministic_and_consistent():
@@ -218,6 +297,8 @@ def _reference_loop(*, clients, slots, prompt_len, batch, V, vocab, seed=0):
     ("tiny", dict(clients=6, slots=40, prompt_len=32, gen_len=8, batch=4)),
     ("rwkv6-1.6b", dict(clients=6, slots=40, prompt_len=32, gen_len=8,
                         batch=4)),
+    ("recurrentgemma-2b", dict(clients=6, slots=40, prompt_len=32,
+                               gen_len=8, batch=4)),
 ])
 def test_serve_admits_and_serves_as_the_reference(arch, flags):
     cfg = port_serve.TINY if arch == "tiny" else get_config(arch,

@@ -30,6 +30,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 from jax.flatten_util import ravel_pytree                         # noqa: E402
 
+import repro.configs.recurrentgemma_2b as ref_rg                 # noqa: E402
 import repro.configs.rwkv6_1_6b as ref_rwkv6                     # noqa: E402
 import repro.configs.stablelm_1_6b as ref_stablelm                # noqa: E402
 import repro.data.pipeline as ref_data                            # noqa: E402
@@ -236,7 +237,8 @@ def test_init_params_follow_the_specs():
 
 
 @pytest.mark.parametrize("over", [
-    {"layer_pattern": ("rec",)}, {"frontend": "vision"},
+    {"n_experts": 4, "top_k": 1, "shared_expert": True},
+    {"frontend": "vision"},
     {"n_experts": 4, "top_k": 2}, {"frontend": "audio"}])
 def test_unported_layers_raise_with_roadmap_pointer(over):
     _, pcfg = _configs(**over)
@@ -248,8 +250,10 @@ def test_unported_layers_raise_with_roadmap_pointer(over):
 # the pieces: configs, common blocks, dataset bytes, curves
 # --------------------------------------------------------------------- #
 def test_configs_are_the_reference_s():
-    assert port_configs.list_archs() == ["rwkv6-1.6b", "stablelm-1.6b"]
-    for arch, ref in (("rwkv6-1.6b", ref_rwkv6),
+    assert port_configs.list_archs() == ["recurrentgemma-2b", "rwkv6-1.6b",
+                                         "stablelm-1.6b"]
+    for arch, ref in (("recurrentgemma-2b", ref_rg),
+                      ("rwkv6-1.6b", ref_rwkv6),
                       ("stablelm-1.6b", ref_stablelm)):
         for reduced in (False, True):
             r = dataclasses.asdict(ref.REDUCED if reduced else ref.FULL)
