@@ -10,22 +10,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device  -- a CUDA card must be present; prints its name and power limit;
 2. build   -- compiles every CUDA source of the port with nvcc, one process
-              per source, all started together;
+              per source, all started together; prints each kernel's
+              registers and spills, the attention tensor-core kernels'
+              shared memory and, where cuobjdump is found, their count of
+              HGMMA/HMMA instructions in the SASS (none fails);
 3. kernels -- each kernel against its plain PyTorch version on the card:
-              coded_reduce on the shapes of the JAX package's kernel tests
-              and on every payload shape of both paths; flash attention,
-              forward and backward, on the reference's kernel-test cases,
-              a GQA case, ragged sequences and the transformer path's
-              shape; the WKV recurrence on the reference's kernel-test
-              cases, bf16 inputs, a ragged sequence, the decays where the
-              reference's chunked form fails, w -> 1 and the serve path's
-              shape; the RG-LRU scan on the reference's kernel-test cases,
-              a ragged (2, 1000, 2500), a -> 1 over 4,096 steps and the
-              recurrentgemma path's shape; the attention forward at head
-              width 256 (MQA, G = 10) with a window of 2,048 over 3,000
-              tokens and at the recurrentgemma path's shape, and the
-              backward's refusal of that width; each with its stated
-              tolerance;
+              coded_reduce on the shapes of the JAX package's kernel tests and
+              on every payload shape of both paths; flash attention, forward
+              and backward, on both of its routes (bf16: tensor cores;
+              float32: CUDA cores): the reference's kernel-test cases, a GQA
+              case, ragged sequences, head widths 8, 24 and 40 and the
+              transformer path's shape; the WKV recurrence on the reference's
+              kernel-test cases, bf16 inputs, a ragged sequence, the decays
+              where the reference's chunked form fails, w -> 1 and the serve
+              path's shape; the RG-LRU scan on the reference's kernel-test
+              cases, a ragged (2, 1000, 2500), a -> 1 over 4,096 steps and the
+              recurrentgemma path's shape; the attention forward at head width
+              256 (MQA, G = 10) with a window of 2,048 over 3,000 tokens and
+              at the recurrentgemma path's shape, and the backward's refusal
+              of that width; each with its stated tolerance;
 4. mlp     -- the first path: ``CodedTrainer`` with the paper's MLP
               (784, 256, 128, 10) on ``bursty-stragglers``, 10,000 examples
               per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card,
@@ -74,6 +77,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -197,8 +201,69 @@ def device_phase():
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """``fa_fwd_tc_kernel<4>`` from its mangled name (the name as it is
+    where it does not parse)."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w*?)EE)?", mangled)
+    if not m:
+        return mangled
+    if m.group(2) is None:
+        return m.group(1)
+    args = (["float"] if m.group(2).startswith("f") else []) + \
+        re.findall(r"Li(\d+)", m.group(2))
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def ptxas_kernels(report: str) -> list:
+    """``(kernel, registers, spill bytes stored, spill bytes loaded)`` of
+    each kernel in a ``ptxas -v`` report."""
+    out, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spill)
+            name = None
+    return out
+
+
+def sass_mma_counts(lib) -> dict:
+    """Tensor-core instructions (``HGMMA``, ``HMMA``) in each kernel's SASS,
+    by ``cuobjdump``; None where ``cuobjdump`` is not found."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get(
+        "CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split(":", 1)[1].strip())
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name and "HGMMA" in line:
+            counts[name]["HGMMA"] += 1
+        elif name and "HMMA" in line:
+            counts[name]["HMMA"] += 1
+    return counts
+
+
 def build_phase():
+    """Build every source; print each kernel's registers and spills (and
+    the attention's tensor-core kernels' shared memory and SASS count of
+    tensor-core instructions); raise if one of those has none."""
     from repro_torch.kernels import _build, kernel_sources
+    from repro_torch.kernels.flash_attention.ops import SOURCE, _library
     t0 = time.perf_counter()
     libs = _build.compile_libraries(kernel_sources())
     log(f"[build] {len(libs)} CUDA source(s) in "
@@ -206,9 +271,26 @@ def build_phase():
     for lib in libs:
         report = lib.with_suffix(".log")
         if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {lib.stem}: {line.strip()}")
+            for name, regs, st, ld in ptxas_kernels(report.read_text()):
+                log(f"[build] {lib.stem} {name}: {regs} registers, spill "
+                    f"stores {st} B, spill loads {ld} B")
+    fa_lib = _build.library_path(SOURCE)
+    smem = _library().fa_bf16_smem_bytes
+    for bwd, D in ((0, 64), (0, 128), (0, 256), (1, 64), (1, 128)):
+        log(f"[build] tensor-core {'backward' if bwd else 'forward'} at "
+            f"D = {D}: {smem(bwd, D)} bytes of dynamic shared memory a "
+            f"block")
+    counts = sass_mma_counts(fa_lib)
+    if counts is None:
+        log("[build] cuobjdump not found: no SASS count of tensor-core "
+            "instructions")
+        return
+    for name, c in sorted(counts.items()):
+        if name.startswith("fa_"):
+            log(f"[build] SASS {name}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+            if "_tc_" in name and c["HGMMA"] + c["HMMA"] == 0:
+                raise AssertionError(f"{name} has no tensor-core "
+                                     f"instruction in its SASS")
 
 
 # --------------------------------------------------------------------- #
@@ -335,6 +417,7 @@ def flash_kernel_phase() -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_attention.ops import kernel_route
 
     path_errs = {"fwd": 0.0, "bwd": 0.0}
 
@@ -357,8 +440,9 @@ def flash_kernel_phase() -> dict:
                 raise AssertionError(f"{tag} {n}: {g.dtype} {g.shape}")
             e_bwd = max(e_bwd, check_close(f"{tag} {n}", g, r, gr, ga))
         log(f"[kernels] flash_attention {tag} {name} causal={causal} "
-            f"window={window}: max abs err fwd {e_fwd:.3e} (rtol {fr}, "
-            f"atol {fa}), bwd {e_bwd:.3e} (rtol {gr}, atol {ga})")
+            f"window={window} ({kernel_route(dtype, shape_q[4], True)}): "
+            f"max abs err fwd {e_fwd:.3e} (rtol {fr}, atol {fa}), bwd "
+            f"{e_bwd:.3e} (rtol {gr}, atol {ga})")
         return e_fwd, e_bwd
 
     # the reference's kernel-test cases, (B, H, S, D) -> G = 1
@@ -367,11 +451,17 @@ def flash_kernel_phase() -> dict:
             for causal, window in ((True, 0), (True, 48), (False, 0)):
                 case(f"({B},{H},{S},{D})", (B, S, H, 1, D), dtype, causal,
                      window)
-    case("GQA (2,128,2,3,32)", (2, 128, 2, 3, 32), torch.float32, True, 0)
-    for S in (1, 100, 200):
-        for causal, window in ((True, 0), (False, 30)):
-            case(f"ragged (1,{S},2,2,16)", (1, S, 2, 2, 16), torch.float32,
-                 causal, window)
+    # GQA, ragged sequences and head widths that are not a multiple of 16,
+    # on both routes (bf16: tensor cores; float32: CUDA cores)
+    for dtype in (torch.float32, torch.bfloat16):
+        case("GQA (2,128,2,3,32)", (2, 128, 2, 3, 32), dtype, True, 0)
+        for S in (1, 100, 200):
+            for causal, window in ((True, 0), (False, 30), (True, 24)):
+                case(f"ragged (1,{S},2,2,16)", (1, S, 2, 2, 16), dtype,
+                     causal, window)
+        for D in (8, 24, 40):
+            case(f"D={D} (1,130,2,2,{D})", (1, 130, 2, 2, D), dtype, True,
+                 48)
     for dtype in (torch.bfloat16, torch.float32):
         e_fwd, e_bwd = case(f"path {FA_PATH}", FA_PATH, dtype, True, 0,
                             chunk=1024)
@@ -1389,8 +1479,10 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
     if backward:
         msg += (f"; backward {t['bwd_ms']:.4f} ms (plain "
                 f"{t['plain_bwd_ms']:.4f}, sdpa {t['sdpa_bwd_ms']:.4f}, "
-                f"bound {t['bwd_bound_ms']:.4f}); forward+backward through "
-                f"autograd {t['fwd_bwd_ms']:.4f} ms")
+                f"bound {t['bwd_bound_ms']:.4f}: {flops_bwd / 1e9:.1f} "
+                f"GFLOP, {flops_bwd / t['bwd_ms'] / 1e9:.2f} TFLOP/s); "
+                f"forward+backward through autograd {t['fwd_bwd_ms']:.4f} "
+                f"ms")
     log(msg)
     torch.cuda.empty_cache()
     return t
@@ -1747,6 +1839,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         f"attention {rl['flash_attention_fwd'] * fa256['fwd_ms'] / n_pre:.3f}"
         f" ms of {float(np.median(rg_out['res']['prefill_ms'])):.2f} ms")
 
+    from repro_torch.kernels.flash_attention.ops import kernel_route
     src = "src/repro_torch/kernels"
     return [{
         "name": "coded_reduce", "route": "cuda",
@@ -1759,6 +1852,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"]}, {
         "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, FA_PATH[4]),
         "source": f"{src}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:88",
         "launches": lm_launches["flash_attention_fwd"],
@@ -1767,6 +1861,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "bound_ms": bf["fwd_bound_ms"], "bound_by": bf["fwd_bound_by"],
         "library_ms": bf["sdpa_fwd_ms"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, FA_PATH[4], True),
         "source": f"{src}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/models/attention.py:204",
         "launches": lm_launches["flash_attention_bwd"],
@@ -1789,6 +1884,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "plain_ms": rg["plain_ms"], "bound_ms": rg["bound_ms"],
         "bound_by": rg["bound_by"], "library_ms": None}, {
         "name": "flash_attention_fwd_d256", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, RG_FA_PATH[4]),
         "source": f"{src}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:88",
         "launches": rg_out["launches"]["flash_attention_fwd"],

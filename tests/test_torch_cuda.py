@@ -151,6 +151,93 @@ def test_flash_attention_kernel_matches_plain_on_card(
                                    **_fa_tol(dtype, True))
 
 
+# bf16, the tensor-core route (wgmma fed by TMA): P and dS are rounded to
+# bf16 before their products, so the bounds are the bf16 ones above
+@pytest.mark.parametrize("shape_q,causal,window", [
+    ((1, 130, 2, 2, 8), True, 48),                 # D not a multiple of 16
+    ((1, 130, 2, 2, 24), True, 0),
+    ((1, 130, 2, 2, 40), False, 30),
+    ((1, 1, 2, 2, 16), True, 0),                   # ragged S
+    ((1, 100, 2, 2, 16), True, 24),
+    ((1, 100, 2, 2, 16), False, 30),
+    ((1, 200, 2, 2, 16), True, 0),
+    ((1, 200, 2, 2, 16), True, 24),
+    ((2, 128, 2, 3, 32), True, 48),                # GQA with a window
+    ((1, 4096, 32, 1, 64), True, 0),               # the training path
+])
+def test_flash_attention_bf16_route_matches_plain_on_card(
+        cuda_device, shape_q, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    assert kernel_route(torch.bfloat16, shape_q[4], True) == \
+        "tensor cores, bf16"
+    B, S, KV, G, D = shape_q
+    q, k, v, do = _attention_inputs(cuda_device, shape_q, (B, S, KV, D),
+                                    "bfloat16", seed=3)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
+    grads_ref = flash_attention_bwd_ref(q, k, v, out_ref, lse_ref, do, **kw)
+    for got, want in [(out, out_ref)] + list(zip(grads, grads_ref)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **_fa_tol("bfloat16", True))
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape_q,window", [
+    ((1, 3000, 1, 10, 256), 2048),     # MQA at 256, a window that masks
+    ((4, 1024, 1, 10, 256), 2048),     # the recurrentgemma path
+])
+def test_flash_attention_bf16_head_dim_256_matches_plain_on_card(
+        cuda_device, shape_q, window):
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    B, S, KV, G, D = shape_q
+    q, k, v, _ = _attention_inputs(cuda_device, shape_q, (B, S, KV, D),
+                                   "bfloat16", seed=4)
+    out, lse = flash_attention_fwd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               out_ref.float().cpu().numpy(),
+                               **_fa_tol("bfloat16", False))
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_on_a_thread_of_its_own(cuda_device,
+                                                         dtype):
+    """Autograd runs the backward on a thread of its own, where no context
+    may be current: the first backward of the process, there, must run."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+    shape_q = (1, 96, 2, 2, 64)
+    q, k, v, do = _attention_inputs(cuda_device, shape_q, (1, 96, 2, 64),
+                                    dtype, seed=6)
+    out, lse = flash_attention_fwd(q, k, v)
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(
+        grads=flash_attention_bwd(q, k, v, out, lse, do)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    for g, r in zip(got["grads"], flash_attention_bwd_ref(q, k, v, out, lse,
+                                                          do)):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(),
+                                   **_fa_tol(dtype, True))
+
+
 def test_transformer_trainer_launches_the_kernels(cuda_device):
     """Coded training of a small transformer on the card: every epoch's
     attention goes through the kernels, forward twice per layer and shard

@@ -233,6 +233,58 @@ def test_cpu_path_counts_no_launches():
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_path_counts_no_launches_on_either_route(dtype):
+    """A CPU tensor of either type runs the plain version, forward and
+    backward, and launches nothing."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 24, 1, 2, 16)).astype(
+        np.float32)).to(dtype).requires_grad_(True)
+    k = torch.from_numpy(rng.standard_normal((1, 24, 1, 16)).astype(
+        np.float32)).to(dtype).requires_grad_(True)
+    v = k.detach().clone().requires_grad_(True)
+    before = (flash_attention.fwd_launches, flash_attention.bwd_launches)
+    out = flash_attention(q, k, v, window=8)
+    out.float().sum().backward()
+    assert (flash_attention.fwd_launches,
+            flash_attention.bwd_launches) == before
+    assert out.dtype == q.grad.dtype == k.grad.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype,D,backward,route", [
+    (torch.bfloat16, 8, False, "tensor cores, bf16"),
+    (torch.bfloat16, 64, True, "tensor cores, bf16"),
+    (torch.bfloat16, 128, True, "tensor cores, bf16"),
+    (torch.bfloat16, 256, False, "tensor cores, bf16"),
+    (torch.float32, 40, True, "CUDA cores, float32"),
+    (torch.float32, 256, False, "CUDA cores, float32"),
+])
+def test_route_by_type_and_width(dtype, D, backward, route):
+    """bf16 takes the tensor-core kernels, float32 the CUDA-core ones, at
+    every head width each direction takes; the entry points a route names
+    are the source's."""
+    from repro_torch.kernels.flash_attention.ops import (ROUTES, SOURCE,
+                                                         kernel_route)
+    assert kernel_route(dtype, D, backward) == route
+    name, fwd, bwd = ROUTES[dtype]
+    assert name == route
+    text = SOURCE.read_text()
+    assert f"int {bwd if backward else fwd}(" in text
+    assert ("_tc_kernel" in text) and ("wgmma.mma_async" in text)
+
+
+def test_route_refuses_what_no_kernel_takes():
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            kernel_route(dtype, 256, backward=True)
+        for D in (0, 12, 264):
+            with pytest.raises(ValueError, match="multiple of 8"):
+                kernel_route(dtype, D)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel_route(torch.float16, 64)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros((1, 8, 2, 1, 16))
     k = torch.zeros((1, 8, 2, 16))
