@@ -11,9 +11,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device  -- a CUDA card must be present; prints its name and power limit;
 2. build   -- compiles every CUDA source of the port with nvcc, one process
               per source, all started together; prints each kernel's
-              registers and spills, the attention tensor-core kernels'
-              shared memory and, where cuobjdump is found, their count of
-              HGMMA/HMMA instructions in the SASS (none fails);
+              registers and spills, the dynamic shared memory of the WKV,
+              RG-LRU and attention tensor-core kernels and, where cuobjdump
+              is found, the attention kernels' count of HGMMA/HMMA
+              instructions in the SASS (none fails);
 3. kernels -- each kernel against its plain PyTorch version on the card:
               coded_reduce on the shapes of the JAX package's kernel tests and
               on every payload shape of both paths; flash attention, forward
@@ -22,8 +23,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
               case, ragged sequences, head widths 8, 24 and 40 and the
               transformer path's shape; the WKV recurrence on the reference's
               kernel-test cases, bf16 inputs, a ragged sequence, the decays
-              where the reference's chunked form fails, w -> 1 and the serve
-              path's shape; the RG-LRU scan on the reference's kernel-test
+              where the reference's chunked form fails, w -> 1, w = 1, w
+              with zeros and 1e-30 entries and the serve path's shape; the
+              RG-LRU scan on the reference's kernel-test
               cases, a ragged (2, 1000, 2500), a -> 1 over 4,096 steps and the
               recurrentgemma path's shape; the attention forward at head width
               256 (MQA, G = 10) with a window of 2,048 over 3,000 tokens and
@@ -202,15 +204,18 @@ def device_phase():
 
 
 def kernel_name(mangled: str) -> str:
-    """``fa_fwd_tc_kernel<4>`` from its mangled name (the name as it is
-    where it does not parse)."""
+    """``fa_fwd_tc_kernel<4>`` or ``wkv_fwd_chunked_kernel<bf16, 64, 64, 32,
+    16, 3>`` from its mangled name (the name as it is where it does not
+    parse): the element type, then the integer arguments."""
     m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w*?)EE)?", mangled)
     if not m:
         return mangled
     if m.group(2) is None:
         return m.group(1)
-    args = (["float"] if m.group(2).startswith("f") else []) + \
-        re.findall(r"Li(\d+)", m.group(2))
+    tail = m.group(2)
+    args = (["float"] if re.match(r"(?:NS_\d+CfgI)?f", tail) else
+            ["bf16"] if "13__nv_bfloat16" in tail else []) + \
+        re.findall(r"Li(\d+)", tail)
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -258,6 +263,26 @@ def sass_mma_counts(lib) -> dict:
     return counts
 
 
+def recurrence_smem(name: str):
+    """Dynamic shared memory a block of the WKV or RG-LRU ring kernel
+    takes, for the instance ``name`` (``kernel_name``'s form: the element
+    type, then K and V first for WKV); None for other kernels."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.rwkv6_wkv import ops as wk
+    m = re.match(r"(\w+)<(float|bf16), ([\d, ]+)>$", name)
+    if not m:
+        return None
+    dtype = torch.float32 if m.group(2) == "float" else torch.bfloat16
+    args = [int(x) for x in m.group(3).split(", ")]
+    if m.group(1) == "wkv_fwd_chunked_kernel":
+        return wk.smem_bytes(dtype, args[0], args[1])
+    if m.group(1) == "rglru_scan_ring_kernel":
+        return rg.smem_bytes(dtype)
+    return None
+
+
 def build_phase():
     """Build every source; print each kernel's registers and spills (and
     the attention's tensor-core kernels' shared memory and SASS count of
@@ -272,8 +297,11 @@ def build_phase():
         report = lib.with_suffix(".log")
         if report.exists():
             for name, regs, st, ld in ptxas_kernels(report.read_text()):
+                smem = recurrence_smem(name)
                 log(f"[build] {lib.stem} {name}: {regs} registers, spill "
-                    f"stores {st} B, spill loads {ld} B")
+                    f"stores {st} B, spill loads {ld} B" +
+                    ("" if smem is None else
+                     f", {smem} B of dynamic shared memory a block"))
     fa_lib = _build.library_path(SOURCE)
     smem = _library().fa_bf16_smem_bytes
     for bwd, D in ((0, 64), (0, 128), (0, 256), (1, 64), (1, 128)):
@@ -475,7 +503,8 @@ def _wkv_inputs(seed, shape, dtype, w):
     """r, k, v, u normal in ``dtype`` and w float32 on the card, drawn with
     numpy; ``w`` is a constant or ``"uniform"`` (the reference's kernel
     tests: U(0.3, 0.99)) or ``"path"`` (exp(-exp(U(-8, 2))), the whole
-    range ``_rwkv_decay`` gives)."""
+    range ``_rwkv_decay`` gives) or ``"zeros"`` (U(0.3, 0.99) with a tenth
+    of the entries 0 and a tenth 1e-30)."""
     import numpy as np
     import torch
     B, H, S, K, V = shape
@@ -489,6 +518,11 @@ def _wkv_inputs(seed, shape, dtype, w):
         wv = rng.uniform(0.3, 0.99, (B, H, S, K))
     elif w == "path":
         wv = np.exp(-np.exp(rng.uniform(-8.0, 2.0, (B, H, S, K))))
+    elif w == "zeros":
+        wv = rng.uniform(0.3, 0.99, (B, H, S, K))
+        pick = rng.uniform(size=wv.shape)
+        wv[pick < 0.1] = 0.0
+        wv[(pick >= 0.1) & (pick < 0.2)] = 1e-30
     else:
         wv = np.full((B, H, S, K), w)
     return r, k, v, torch.from_numpy(wv.astype(np.float32)).cuda(), \
@@ -546,6 +580,14 @@ def wkv_kernel_phase() -> float:
         case("(1, 2, 128, 64, 64)", (1, 2, 128, 64, 64), torch.float32, w)
     case("w -> 1 (1, 2, 1024, 64, 64)", (1, 2, 1024, 64, 64), torch.float32,
          math.exp(-math.exp(-8.0)))
+    # where a log-domain form would break: log 0, tiny w, and w = 1
+    for dtype in (torch.float32, torch.bfloat16):
+        case("w with zeros and 1e-30 (1, 2, 1000, 64, 64)",
+             (1, 2, 1000, 64, 64), dtype, "zeros")
+    case("w = 1 (1, 2, 1024, 64, 64)", (1, 2, 1024, 64, 64), torch.float32,
+         1.0)
+    case("K != V, ragged (1, 2, 1023, 16, 64)", (1, 2, 1023, 16, 64),
+         torch.float32, "path")
     for dtype in (torch.float32, torch.bfloat16):
         case(f"path {WKV_PATH}", WKV_PATH, dtype, "path")
     torch.cuda.empty_cache()
@@ -1490,14 +1532,18 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
 
 def wkv_times() -> dict:
     """The WKV kernel at the serve path's shape, beside its plain version
-    and the bound.  No single PyTorch call computes the recurrence, so
-    there is no library time."""
+    and the bound, and the SM clock just before it is timed (the kernel is
+    bound by issue and latency, so its time moves with the clock).  No
+    single PyTorch call computes the recurrence, so there is no library
+    time."""
     import torch
 
+    from repro_torch.kernels.recurrence_ab import sm_clock_mhz
     from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
     B, H, S, K, V = WKV_PATH
     r, k, v, w, u = _wkv_inputs(4, WKV_PATH, torch.bfloat16, "path")
     counts = read_counts()
+    clock = sm_clock_mhz()
     t = {"ms": time_ms(lambda: wkv(r, k, v, w, u), 30),
          "warm_ms": time_ms(lambda: wkv(r, k, v, w, u), 30, cold=False),
          "plain_ms": time_ms(lambda: wkv_ref(r, k, v, w, u), 3)}
@@ -1513,13 +1559,16 @@ def wkv_times() -> dict:
     t_ops = flops / F32_FLOP_PER_S * 1e3
     t.update(bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
-             bytes=n_bytes, flops=flops)
+             bytes=n_bytes, flops=flops, sm_clock_mhz=clock)
     log(f"[times] wkv {WKV_PATH} bf16 r/k/v/u, f32 w: kernel "
         f"{t['ms']:.5f} ms (inputs in L2: {t['warm_ms']:.5f}), plain "
         f"{t['plain_ms']:.3f} ms, library none; bound {t['bound_ms']:.5f} ms "
         f"by {t['bound_by']} ({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 "
         f"TB/s; {flops / 1e9:.3f} GFLOP float32 -> {t_ops:.5f} ms at 67 "
-        f"TFLOP/s) -> {t['bound_ms'] / t['ms']:.1%} of the bound")
+        f"TFLOP/s) -> {t['bound_ms'] / t['ms']:.1%} of the float32 bound; "
+        f"units: the two products on the tensor cores (3xTF32 mma.sync, "
+        f"float32 accuracy), the rest on the CUDA cores; SM clock "
+        f"{clock:.0f} MHz")
     del r, k, v, w, u
     torch.cuda.empty_cache()
     return t
@@ -1527,18 +1576,21 @@ def wkv_times() -> dict:
 
 def rglru_times() -> dict:
     """The RG-LRU scan kernel at the recurrentgemma path's shape, float32
-    a and b as the model gives them, beside its plain version and the
-    bound.  No single PyTorch call computes the recurrence, so there is no
-    library time."""
+    a and b as the model gives them, beside its plain version, the bound
+    and ``torch.add(a, b, out=...)``, which moves the same bytes in the
+    same layout: what the card streams in practice.  No single PyTorch
+    call computes the recurrence, so there is no library time."""
     import torch
 
     from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
     B, S, D = RG_SCAN_PATH
     a, b = _scan_inputs(4, RG_SCAN_PATH, torch.float32)
     counts = read_counts()
+    o = torch.empty_like(a)
     t = {"ms": time_ms(lambda: rglru_scan(a, b), 30),
          "warm_ms": time_ms(lambda: rglru_scan(a, b), 30, cold=False),
-         "plain_ms": time_ms(lambda: rglru_ref(a, b), 3)}
+         "plain_ms": time_ms(lambda: rglru_ref(a, b), 3),
+         "stream_ms": time_ms(lambda: torch.add(a, b, out=o), 30)}
     set_counts(counts)                   # these launches are not a path's
     # a and b read once, out and h_last written once; a multiply and an
     # add per element
@@ -1555,8 +1607,10 @@ def rglru_times() -> dict:
         f"({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 TB/s; "
         f"{flops / 1e6:.1f} MFLOP -> {t_ops:.5f} ms at 67 TFLOP/s) -> "
         f"{t['bound_ms'] / t['ms']:.1%} of the bound, "
-        f"{n_bytes / t['ms'] / 1e9:.3f} TB/s")
-    del a, b
+        f"{n_bytes / t['ms'] / 1e9:.3f} TB/s; the same bytes streamed by "
+        f"torch.add(a, b, out=...) {t['stream_ms']:.5f} ms "
+        f"({n_bytes / t['stream_ms'] / 1e9:.3f} TB/s)")
+    del a, b, o
     torch.cuda.empty_cache()
     return t
 
@@ -1564,7 +1618,7 @@ def rglru_times() -> dict:
 #: kernel families of a serve profile: the port's kernels by a piece of
 #: their names, then the matrix products, then the rest
 SERVE_FAMILIES = {"rwkv6-1.6b": {"wkv": "wkv_fwd"},
-                  "recurrentgemma-2b": {"rglru": "rglru_scan_kernel",
+                  "recurrentgemma-2b": {"rglru": "rglru_scan_",
                                         "flash_attention": "fa_fwd"}}
 
 
@@ -1870,6 +1924,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "bound_ms": bf["bwd_bound_ms"], "bound_by": bf["bwd_bound_by"],
         "library_ms": bf["sdpa_bwd_ms"]}, {
         "name": "rwkv6_wkv", "route": "cuda",
+        "design": "chunked exact, L=16, 3xTF32 tensor-core products",
         "source": f"{src}/rwkv6_wkv/csrc/rwkv6_wkv.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76",
         "launches": serve_out["launches"]["rwkv6_wkv"],
@@ -1877,6 +1932,7 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
         "library_ms": None}, {
         "name": "rglru_scan", "route": "cuda",
+        "design": "cp.async ring (64 steps x 2 stages), bit-equal",
         "source": f"{src}/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:54",
         "launches": rg_out["launches"]["rglru_scan"],

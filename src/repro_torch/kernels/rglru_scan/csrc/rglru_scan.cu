@@ -1,4 +1,5 @@
-// RG-LRU linear scan, forward, for Hopper (sm_90a).
+// RG-LRU linear scan, forward, for Hopper (sm_90a), fed by a ring of
+// asynchronous copies.
 //
 // Replaces the TPU kernel `rglru_scan_pallas`
 // (src/repro/kernels/rglru_scan/rglru_scan.py:54, body `rglru_scan_kernel`
@@ -14,25 +15,40 @@
 // the reference; a caller with a state h0 folds a_0·h0 into b_0.
 //
 // Each step is a multiply, then an add, each rounded to float32
-// (__fmul_rn, __fadd_rn, never contracted into an FMA), in step order: the
-// arithmetic of the plain sequential version (ref.py), so that the two
-// agree bit for bit.  The reference's model scans with an associative
-// (log-depth) combine instead, which rounds in another order.
+// (__fmul_rn, __fadd_rn, never contracted into an FMA), in step order, by
+// one thread per channel: the arithmetic of the plain sequential version
+// (ref.py), so that the two agree bit for bit.  The reference's model scans
+// with an associative (log-depth) combine instead, which rounds in another
+// order.
 //
 // What bounds it on this card.  One multiply and one add per element
 // against 2 elements read and 1 written: at the serve path's shape
-// (4, 1024, 2560) in float32 that is 126 MB, 0.038 ms at 3.35 TB/s, and
-// 21 MFLOP, nothing.  So bytes bound it; but the steps of a channel depend
-// on each other, and the path has only B·D = 10,240 channels.  This first
-// design is the simple one: one thread per channel, a warp on 32
-// neighbouring channels so that each step's loads are coalesced, blocks of
-// 64 threads so that the 160 blocks of the path's shape reach every SM,
-// and each thread keeps the next kSteps steps' loads in flight (in
-// registers) while it runs the dependent chain of the current kSteps.  The
-// latency of a memory round trip per kSteps steps then bounds it, not the
-// bytes.  The known next step is a chunked scan: local scans of S-chunks by
-// several threads of a channel, then a carry pass through the chunks'
-// cumulative decays.
+// (4, 1024, 2560) in float32 that is 126 MB, 0.0376 ms at 3.35 TB/s, and
+// 21 MFLOP, nothing.  So bytes bound it.  The steps of a channel form a
+// chain, but a step is only ~8 cycles of dependent arithmetic: 1,024 of them
+// take ~5 us, so the chain does not bound it either, if the loads are far
+// enough ahead.  Little's law asks for ~2.3 MB in flight at 3.35 TB/s and
+// ~0.7 us of latency.  The design (`rglru_scan_ring_kernel`):
+//   * one warp a block on 32 neighbouring channels of one batch row: 320
+//     blocks at the path's shape, two or three on each SM;
+//   * a ring of NST = 2 shared-memory stages of TS = 64 steps x 32 channels
+//     of a and of b (16 KB a stage in float32), filled by 16-byte
+//     `cp.async`: the warp runs the chain on one stage while the next is in
+//     flight, 5 MB across the card.  More stages measured slower (8 KB x 4,
+//     4 KB x 8 and 16 KB x 4), 32 KB x 2 the same, and blocks of 128
+//     channels slower (`repro_torch/kernels/recurrence_ab.py` times them).
+//     cp.async and not TMA: a stage is rows of 128 bytes, and needs no
+//     tensor map or barrier; a ragged last tile copies only its rows and
+//     channels, and never reads the next batch row;
+//   * each step's 32 results are stored by the warp as one coalesced row.
+// It moves its bytes at ~83 % of the rate `torch.add(a, b, out=...)` moves
+// the same bytes in the same layout (chip_smoke.py's `[times] rglru_scan`
+// line); what holds back the rest is not known.
+// A 16-byte copy needs 16-byte aligned rows: D·sizeof(a's type) a multiple
+// of 16 and 16-byte aligned a and b.  Other inputs (the path never gives
+// one) run `rglru_scan_rows_kernel`, the first design: the same chain, fed
+// by registers that hold the next 16 steps' loads; it is bound by one
+// memory round trip per 16 steps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,8 +56,8 @@
 
 namespace {
 
-constexpr int kThreads = 64;          // channels per block
-constexpr int kSteps = 16;            // steps loaded ahead of the chain
+constexpr int kRowsThreads = 64;      // channels a block of the rows kernel
+constexpr int kRowsSteps = 16;        // steps the rows kernel loads ahead
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -56,8 +72,96 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// steps [t0, t0 + kSteps) of one channel into registers; a step past S is
-// the identity (a = 1, b = 0), so it leaves h unchanged
+__device__ __forceinline__ float step(float a, float h, float b) {
+  return __fadd_rn(__fmul_rn(a, h), b);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, int TS_, int NST_, int CW_>
+struct Ring {
+  static constexpr int TS = TS_, NST = NST_, CW = CW_;  // CW: channels a block
+  static constexpr int ROW_B = CW * (int)sizeof(T);      // one step's row
+  static constexpr int COPIES = ROW_B / 16;              // 16 B copies a row
+  static constexpr int STAGE_B = 2 * TS * ROW_B;         // a, then b
+  static constexpr int SMEM = NST * STAGE_B;
+};
+
+template <typename T, class R>
+__global__ void __launch_bounds__(R::CW)
+rglru_scan_ring_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                       T* __restrict__ out, float* __restrict__ h_last,
+                       int S, int D) {
+  constexpr int TS = R::TS, NST = R::NST, CW = R::CW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;                  // this thread's channel
+  const int c0 = blockIdx.x * CW;
+  const int nc = min(CW, D - c0);                // channels of this block
+  const int copies = nc * (int)sizeof(T) / 16;   // valid copies a row
+  const int64_t base = (int64_t)blockIdx.y * S * D + c0;
+  const int n_tiles = (S + TS - 1) / TS;
+
+  // tile c's rows into its stage (an empty group past the last tile)
+  auto issue = [&](int c) {
+    if (c < n_tiles) {
+      const int t0 = c * TS, n = min(TS, S - t0);
+      unsigned char* st = smem + (c % NST) * R::STAGE_B;
+      for (int p = lane; p < TS * R::COPIES; p += CW) {
+        const int row = p / R::COPIES, q = p % R::COPIES;
+        if (row < n && q < copies) {
+          const int64_t g = base + (int64_t)(t0 + row) * D;
+          cp_async16(st + row * R::ROW_B + q * 16,
+                     reinterpret_cast<const char*>(a + g) + q * 16);
+          cp_async16(st + (TS + row) * R::ROW_B + q * 16,
+                     reinterpret_cast<const char*>(b + g) + q * 16);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < NST - 1; ++c) issue(c);
+  const bool live = lane < nc;                   // others run on stale data
+  float h = 0.f;
+  T* o = out + base + lane;
+  for (int c = 0; c < n_tiles; ++c) {
+    issue(c + NST - 1);
+    cp_async_wait<NST - 1>();
+    __syncthreads();                             // tile c has landed
+    const T* as = reinterpret_cast<const T*>(smem + (c % NST) * R::STAGE_B);
+    const T* bs = as + TS * CW;
+    const int t0 = c * TS, n = min(TS, S - t0);
+    if (n == TS) {
+#pragma unroll
+      for (int j = 0; j < TS; ++j) {
+        h = step(to_f(as[j * CW + lane]), h, to_f(bs[j * CW + lane]));
+        if (live) o[(int64_t)(t0 + j) * D] = from_f<T>(h);
+      }
+    } else {
+      for (int j = 0; j < n; ++j) {
+        h = step(to_f(as[j * CW + lane]), h, to_f(bs[j * CW + lane]));
+        if (live) o[(int64_t)(t0 + j) * D] = from_f<T>(h);
+      }
+    }
+    __syncthreads();                             // before tile c's stage
+  }                                              // is filled again
+  if (live) h_last[(int64_t)blockIdx.y * D + c0 + lane] = h;
+}
+
+// steps [t0, t0 + kRowsSteps) of one channel into registers; a step past S
+// is the identity (a = 1, b = 0), so it leaves h unchanged
 template <typename T>
 __device__ __forceinline__ void load_steps(float* ra, float* rb,
                                            const T* __restrict__ a,
@@ -65,7 +169,7 @@ __device__ __forceinline__ void load_steps(float* ra, float* rb,
                                            int64_t off, int t0, int S,
                                            int D) {
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
+  for (int j = 0; j < kRowsSteps; ++j) {
     const int t = t0 + j;
     const int64_t i = off + (int64_t)t * D;
     ra[j] = t < S ? to_f(a[i]) : 1.f;
@@ -74,27 +178,27 @@ __device__ __forceinline__ void load_steps(float* ra, float* rb,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  T* __restrict__ out, float* __restrict__ h_last, int S,
-                  int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kRowsThreads)
+rglru_scan_rows_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                       T* __restrict__ out, float* __restrict__ h_last,
+                       int S, int D) {
+  const int d = blockIdx.x * kRowsThreads + threadIdx.x;
   if (d >= D) return;
   const int64_t off = (int64_t)blockIdx.y * S * D + d;
-  float ca[kSteps], cb[kSteps], na[kSteps], nb[kSteps];
+  float ca[kRowsSteps], cb[kRowsSteps], na[kRowsSteps], nb[kRowsSteps];
   load_steps(ca, cb, a, b, off, 0, S, D);
   float h = 0.f;
-  for (int t0 = 0; t0 < S; t0 += kSteps) {
-    const bool more = t0 + kSteps < S;
-    if (more) load_steps(na, nb, a, b, off, t0 + kSteps, S, D);
+  for (int t0 = 0; t0 < S; t0 += kRowsSteps) {
+    const bool more = t0 + kRowsSteps < S;
+    if (more) load_steps(na, nb, a, b, off, t0 + kRowsSteps, S, D);
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      h = __fadd_rn(__fmul_rn(ca[j], h), cb[j]);
+    for (int j = 0; j < kRowsSteps; ++j) {
+      h = step(ca[j], h, cb[j]);
       if (t0 + j < S) out[off + (int64_t)(t0 + j) * D] = from_f<T>(h);
     }
     if (more) {
 #pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
+      for (int j = 0; j < kRowsSteps; ++j) {
         ca[j] = na[j];
         cb[j] = nb[j];
       }
@@ -103,11 +207,37 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
   h_last[(int64_t)blockIdx.y * D + d] = h;
 }
 
+// the ring of the path: TS = 64 steps a stage, NST = 2 stages, CW = 32
+// channels a block
+template <typename T>
+using PathRing = Ring<T, 64, 2, 32>;
+
+template <typename T, class R>
+cudaError_t launch_ring(const void* a, const void* b, void* out,
+                        void* h_last, int B, int S, int D,
+                        cudaStream_t stream) {
+  auto kernel = rglru_scan_ring_kernel<T, R>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((D + R::CW - 1) / R::CW, B);
+  kernel<<<grid, R::CW, R::SMEM, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<T*>(out), static_cast<float*>(h_last), S, D);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* b, void* out, void* h_last,
                    int B, int S, int D, cudaStream_t stream) {
-  const dim3 grid((D + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
+  const bool aligned =
+      (D * sizeof(T)) % 16 == 0 &&
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
+       16) == 0;
+  if (aligned)
+    return launch_ring<T, PathRing<T>>(a, b, out, h_last, B, S, D, stream);
+  const dim3 grid((D + kRowsThreads - 1) / kRowsThreads, B);
+  rglru_scan_rows_kernel<T><<<grid, kRowsThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<T*>(out), static_cast<float*>(h_last), S, D);
   return cudaGetLastError();
@@ -118,16 +248,25 @@ cudaError_t launch(const void* a, const void* b, void* out, void* h_last,
 extern "C" {
 
 // dtype of a, b and out: 0 = float32, 1 = bfloat16; h_last is float32.
-// Returns a cudaError_t (0 = success).
+// Runs the ring where a, b and D allow it, else the rows kernel.  Returns
+// a cudaError_t (0 = success).
 int rglru_scan_fwd(int dtype, const void* a, const void* b, void* out,
                    void* h_last, int B, int S, int D, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch<float>(a, b, out, h_last, B, S, D, st);
+  if (dtype == 0)
+    return (int)launch<float>(a, b, out, h_last, B, S, D, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(a, b, out, h_last, B, S, D, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory a block of the ring takes, or -1
+int rglru_scan_smem_bytes(int dtype) {
+  if (dtype == 0) return PathRing<float>::SMEM;
+  if (dtype == 1) return PathRing<__nv_bfloat16>::SMEM;
+  return -1;
 }
 
 const char* rglru_scan_error_string(int err) {

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels._build import load_library
 from .ref import rglru_ref
 
-__all__ = ["SOURCE", "rglru_scan", "rglru_ref"]
+__all__ = ["SOURCE", "rglru_ref", "rglru_scan", "smem_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 
@@ -32,6 +32,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(str(SOURCE))
     lib.rglru_scan_fwd.argtypes = [_I] + [_P] * 4 + [_I] * 3 + [_P]
     lib.rglru_scan_fwd.restype = _I
+    lib.rglru_scan_smem_bytes.argtypes = [_I]
+    lib.rglru_scan_smem_bytes.restype = _I
     lib.rglru_scan_error_string.argtypes = [_I]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -68,6 +70,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
             "the RG-LRU scan kernel is forward-only: training a 'rec' layer "
             "on the card needs a backward kernel, a reverse linear scan "
             "(ROADMAP.md)")
+    return _launch(a, b)
+
+
+rglru_scan.launches = 0
+
+
+def _launch(a, b):
+    """One launch on checked CUDA inputs, counted in
+    ``rglru_scan.launches``: the copy ring where ``a`` and ``b`` are
+    16-byte aligned and a row of D elements is a multiple of 16 bytes,
+    else the register-fed rows kernel (``csrc/rglru_scan.cu``)."""
     B, S, D = a.shape
     out = torch.empty_like(a)
     h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
@@ -84,4 +97,6 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return out, h_last
 
 
-rglru_scan.launches = 0
+def smem_bytes(dtype: torch.dtype) -> int:
+    """Dynamic shared memory a block of the ring takes (builds it)."""
+    return _library().rglru_scan_smem_bytes(_DTYPES[dtype])

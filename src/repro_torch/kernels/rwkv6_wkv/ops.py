@@ -1,4 +1,5 @@
-"""Wrapper of the RWKV6 WKV kernel: the exact recurrence, forward only.
+"""Wrapper of the RWKV6 WKV kernel: the exact recurrence in chunks, forward
+only.
 
 ``wkv(r, k, v, w, u)`` launches the hand-written kernel of
 ``csrc/rwkv6_wkv.cu`` (built with nvcc at first use) on the current stream
@@ -17,7 +18,7 @@ import torch
 from repro_torch.kernels._build import load_library
 from .ref import wkv_ref
 
-__all__ = ["HEAD_DIMS", "SOURCE", "wkv", "wkv_ref"]
+__all__ = ["HEAD_DIMS", "SOURCE", "smem_bytes", "wkv", "wkv_ref"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 
@@ -33,6 +34,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(str(SOURCE))
     lib.wkv_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_P]
     lib.wkv_fwd.restype = _I
+    lib.wkv_smem_bytes.argtypes = [_I] * 3
+    lib.wkv_smem_bytes.restype = _I
     lib.wkv_error_string.argtypes = [_I]
     lib.wkv_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,9 +73,10 @@ def wkv(r, k, v, w, u, *, chunk: int = 32):
     type (float32 or bfloat16), w float32, all contiguous, on one device.
     Returns ``(out (B, H, S, V) in r's type, S_last (B, H, K, V) float32)``
     of the recurrence from a zero state.  ``chunk`` is the TPU kernel's
-    tiling, kept for its signature: the result does not depend on it.  On
-    the card the call is forward-only and refuses inputs that need a
-    gradient; on the CPU the plain recurrence is differentiable."""
+    tiling, kept for its signature: the kernel's own chunk is 16 steps
+    whatever it says.  On the card the call is forward-only and refuses
+    inputs that need a gradient; on the CPU the plain recurrence is
+    differentiable."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u)
@@ -81,6 +85,19 @@ def wkv(r, k, v, w, u, *, chunk: int = 32):
         raise NotImplementedError(
             "the WKV kernel is forward-only: training through it needs a "
             "backward kernel, which the reference lacks too (ROADMAP.md)")
+    return _launch(r, k, v, w, u)
+
+
+wkv.launches = 0
+
+
+def _launch(r, k, v, w, u):
+    """One launch of the kernel on checked CUDA inputs, counted in
+    ``wkv.launches``.  An input whose storage is not 16-byte aligned is
+    copied first: the kernel's asynchronous copies move 16 bytes at a
+    time."""
+    r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (r, k, v, w))
     B, H, S, K = r.shape
     V = v.shape[3]
     out = torch.empty((B, H, S, V), dtype=r.dtype, device=r.device)
@@ -99,4 +116,6 @@ def wkv(r, k, v, w, u, *, chunk: int = 32):
     return out, s_last
 
 
-wkv.launches = 0
+def smem_bytes(dtype: torch.dtype, K: int, V: int) -> int:
+    """Dynamic shared memory a block of the kernel takes (builds it)."""
+    return _library().wkv_smem_bytes(_DTYPES[dtype], K, V)

@@ -279,6 +279,9 @@ def test_transformer_trainer_launches_the_kernels(cuda_device):
 # differ by at most one rounding step.
 # --------------------------------------------------------------------- #
 def _wkv_inputs(device, shape, dtype, w=None, seed=0):
+    """w: None for U(0.3, 0.99), a constant, "path" for exp(-exp(U(-8,
+    2))) (the range the model's decay takes) or "zeros" for U(0.3, 0.99)
+    with a tenth of the entries 0 and a tenth 1e-30."""
     B, H, S, K, V = shape
     rng = np.random.default_rng(seed)
 
@@ -286,8 +289,16 @@ def _wkv_inputs(device, shape, dtype, w=None, seed=0):
         return torch.from_numpy(rng.standard_normal(sh).astype(
             np.float32)).to(device, getattr(torch, dtype))
     r, k, v = draw(B, H, S, K), draw(B, H, S, K), draw(B, H, S, V)
-    wv = (rng.uniform(0.3, 0.99, (B, H, S, K)) if w is None
-          else np.full((B, H, S, K), w))
+    if w is None or w == "zeros":
+        wv = rng.uniform(0.3, 0.99, (B, H, S, K))
+        if w == "zeros":
+            pick = rng.uniform(size=wv.shape)
+            wv[pick < 0.1] = 0.0
+            wv[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+    elif w == "path":
+        wv = np.exp(-np.exp(rng.uniform(-8.0, 2.0, (B, H, S, K))))
+    else:
+        wv = np.full((B, H, S, K), w)
     return r, k, v, torch.from_numpy(wv.astype(np.float32)).to(device), \
         draw(H, K)
 
@@ -298,6 +309,10 @@ def _wkv_inputs(device, shape, dtype, w=None, seed=0):
     ((1, 2, 128, 64, 64), 0.36787944117144233),  # e^-1: chunked form off
     ((1, 2, 128, 64, 64), 0.000617978989331094),  # exp(-e^2)
     ((2, 3, 77, 16, 64), None),                  # ragged, K != V
+    ((1, 2, 200, 64, 64), "zeros"),              # log 0 and tiny w
+    ((1, 2, 300, 64, 64), 1.0),                  # w = 1: no decay
+    ((1, 2, 1024, 64, 64), "path"),              # the model's decays
+    ((1, 2, 1023, 16, 64), None),                # ragged chunk, K != V
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv_kernel_matches_plain_on_card(cuda_device, shape, w, dtype):
@@ -364,8 +379,9 @@ def test_rwkv_model_on_card_matches_cpu_and_counts_launches(cuda_device):
 # --------------------------------------------------------------------- #
 # the RG-LRU scan: kernel vs its plain version (the sequential
 # recurrence).  Both multiply, then add, in float32, step by step, so
-# they agree bit for bit; the bound stated is the reference's kernel-test
-# one (float32 2e-5 on the output's scale, bfloat16 2e-2).
+# they agree bit for bit (the copy ring where rows are 16-byte aligned,
+# the rows kernel elsewhere); the bound stated is the reference's
+# kernel-test one (float32 2e-5 on the output's scale, bfloat16 2e-2).
 # --------------------------------------------------------------------- #
 def _scan_inputs(device, shape, dtype, a_lo=0.5, a_hi=0.999, seed=0):
     rng = np.random.default_rng(seed)
@@ -380,6 +396,8 @@ def _scan_inputs(device, shape, dtype, a_lo=0.5, a_hi=0.999, seed=0):
     ((3, 64, 256), 0.5, 0.999),                  # tests/test_kernels.py
     ((2, 1000, 250), 0.5, 0.999),                # ragged S and D
     ((1, 4096, 96), 0.9999, 1.0),                # a -> 1: |h| grows
+    ((3, 1, 64), 0.5, 0.999),                    # S = 1
+    ((2, 50, 1), 0.5, 0.999),                    # D = 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rglru_kernel_matches_plain_on_card(cuda_device, shape, a_lo, a_hi,

@@ -44,6 +44,7 @@ import repro_torch.configs.rwkv6_1_6b as port_rwkv_cfg            # noqa: E402
 import repro_torch.models.rwkv6 as port_rwkv                      # noqa: E402
 import repro_torch.models.transformer as port_tf                  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref            # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_exact   # noqa: E402
 from repro_torch.models.common import spec_leaves                 # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves              # noqa: E402
 
@@ -159,6 +160,93 @@ def test_wkv_result_does_not_depend_on_chunk():
     b = wkv(*ins, chunk=64)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert wkv_ref is port_rwkv.wkv_sequential
+
+
+# the cases of the kernel's chunked algorithm: (B, H, S, K, V) and w
+CHUNKED_CASES = {
+    "ref (1, 2, 64, 16, 16)": ((1, 2, 64, 16, 16), "uniform"),
+    "ref (2, 1, 128, 32, 32)": ((2, 1, 128, 32, 32), "uniform"),
+    "ref (1, 1, 96, 64, 64)": ((1, 1, 96, 64, 64), "uniform"),
+    "w = e^-1": ((1, 2, 128, 64, 64), math.exp(-1.0)),
+    "w = exp(-e^2)": ((1, 2, 128, 64, 64), math.exp(-math.e ** 2)),
+    "w -> 1 at S = 1024": ((1, 1, 1024, 64, 64), math.exp(-math.exp(-8.0))),
+    "w = 1": ((1, 2, 200, 32, 32), 1.0),
+    "zeros and 1e-30 in w": ((1, 2, 200, 64, 64), "zeros"),
+    "path draw": ((1, 2, 256, 64, 64), "path"),
+    "ragged, K != V": ((2, 3, 77, 16, 64), "uniform"),
+    "ragged S = 1023, K != V": ((1, 1, 1023, 16, 64), "path"),
+}
+
+
+def _chunked_inputs(name):
+    """The case's inputs: r, k, v, u normal and w drawn as the kernel's
+    card tests draw it ("path": exp(-exp(U(-8, 2))), the range the model's
+    decay takes; "zeros": U(0.3, 0.99) with a tenth of the entries 0 and a
+    tenth 1e-30)."""
+    (B, H, S, K, V), w = CHUNKED_CASES[name]
+    rng = np.random.default_rng(11)
+    r, k = (rng.standard_normal((B, H, S, K)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((B, H, S, V)).astype(np.float32)
+    u = rng.standard_normal((H, K)).astype(np.float32)
+    if w == "uniform":
+        wv = rng.uniform(0.3, 0.99, (B, H, S, K))
+    elif w == "path":
+        wv = np.exp(-np.exp(rng.uniform(-8.0, 2.0, (B, H, S, K))))
+    elif w == "zeros":
+        wv = rng.uniform(0.3, 0.99, (B, H, S, K))
+        pick = rng.uniform(size=wv.shape)
+        wv[pick < 0.1] = 0.0
+        wv[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+    else:
+        wv = np.full((B, H, S, K), w)
+    return r, k, v, wv.astype(np.float32), u
+
+
+_SEQUENTIAL = {}
+
+
+def _sequential(name):
+    """The port's and the reference's sequential recurrence on the case,
+    computed once per case."""
+    if name not in _SEQUENTIAL:
+        ins = _chunked_inputs(name)
+        port = port_rwkv.wkv_sequential(*map(_t, ins))
+        ref = ref_rwkv.wkv_sequential(*map(jnp.asarray, ins))
+        _SEQUENTIAL[name] = (port, tuple(np.asarray(x) for x in ref))
+    return _SEQUENTIAL[name]
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("name", list(CHUNKED_CASES))
+def test_chunked_exact_model_matches_sequential(name, chunk):
+    """The kernel's algorithm in plain torch (interval products of w, the
+    carried state) against the port's ``wkv_sequential`` and the
+    reference's, at float32 rtol 2e-4 and atol 2e-4·max(1, max|out|): also
+    where the reference's chunked form is off (w = e^-1, exp(-e²)), where
+    a log-domain form would take log 0, at w -> 1 and w = 1 over long
+    sequences, on ragged S with K != V, and at chunk 16, 32 and 64, whose
+    results then agree with each other within the same bound."""
+    (port_out, port_s), (ref_out, ref_s) = _sequential(name)
+    out, s_last = wkv_chunked_exact(*map(_t, _chunked_inputs(name)),
+                                    chunk=chunk)
+    assert out.shape == port_out.shape and s_last.shape == port_s.shape
+    scale = max(1.0, float(port_out.abs().max()))
+    s_scale = max(1.0, float(port_s.abs().max()))
+    for want_out, want_s in ((port_out.numpy(), port_s.numpy()),
+                             (ref_out, ref_s)):
+        np.testing.assert_allclose(out.numpy(), want_out, rtol=2e-4,
+                                   atol=2e-4 * scale)
+        np.testing.assert_allclose(s_last.numpy(), want_s, rtol=2e-4,
+                                   atol=2e-4 * s_scale)
+    assert torch.isfinite(out).all() and torch.isfinite(s_last).all()
+    if chunk != 16:
+        out16, s16 = wkv_chunked_exact(*map(_t, _chunked_inputs(name)),
+                                       chunk=16)
+        np.testing.assert_allclose(out.numpy(), out16.numpy(), rtol=2e-4,
+                                   atol=2e-4 * scale)
+        np.testing.assert_allclose(s_last.numpy(), s16.numpy(), rtol=2e-4,
+                                   atol=2e-4 * s_scale)
 
 
 @pytest.mark.parametrize("seed", range(3))
