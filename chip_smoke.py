@@ -45,7 +45,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. tiny    -- ``repro_torch.train.e2e`` at its TINY config on the card and
               on the CPU: equal decode outcomes and simulated times, losses
               within rtol 1e-3, and the reference's speedups;
-7. serve   -- the third path: ``repro_torch.launch.serve.serve`` with
+7. fel     -- the paper's experiment: ``repro_torch.core.fel.FELTrainer``
+              with the MLP (784, 256, 128, 10), 10,000 examples a
+              partition, M = K = 6, SGD-momentum(1e-2), 4 schemes x 3
+              epochs on the instant-uplink backend (noise 0) and through
+              ``cluster=`` the ``bursty-stragglers`` scenario; the
+              loss-weighted coded step decodes inside its one backward.
+              C1: every run that decoded every epoch ends with the params
+              of the straggler-free uncoded run (rtol 1e-5, atol 1e-6);
+              the same runs at 64 examples on the CPU give bit-equal host
+              outcomes and params within that tolerance of the card's;
+              each epoch's split (plan, draw, stack, copy, step);
+8. lmtrain -- ``repro_torch.launch.train.train`` at stablelm-1.6b's full
+              size (24 layers): 3 coded steps (M = 6 workers, K = 12
+              partitions of one 1,024-token sequence, AdamW) and one plain
+              step (4 sequences, clip_norm 1.0); the attention kernels
+              must launch twice a layer forward (remat) and once backward
+              a step; then one coded step's gradient against the gradient
+              of the K partitions' summed mean CE, taken directly, within
+              the model's bf16 conditioning (``GRAD_ROUTE_FACTOR``);
+9. serve   -- the third path: ``repro_torch.launch.serve.serve`` with
               rwkv6-1.6b at full size (24 layers, bf16 compute): Lyapunov
               admission of 6 clients over 10 slots, batched prefill of
               1,024-token prompts through the WKV kernel, 16 greedy decode
@@ -54,7 +73,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               (bf16 and float32), the model on the card against the CPU at
               REDUCED, and the REDUCED serve loop on the card and the CPU
               (equal admissions and served counts);
-8. rg      -- the fourth path: the same serve loop and traffic with
+10. rg     -- the fourth path: the same serve loop and traffic with
               recurrentgemma-2b at full size (26 layers, 2.68 B parameters,
               bf16 compute): each prefill runs the RG-LRU kernel in its 18
               rec layers and the attention forward (head width 256) in its
@@ -63,7 +82,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
               of 2,048) and 2,560 tokens (a ring from prefill), in bf16 and
               float32, the model on the card against the CPU at REDUCED,
               and the REDUCED serve loop on the card and the CPU;
-9. times   -- each kernel, its plain version and one library call, timed
+11. times  -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
               the per-epoch phase split of the training paths and a
               profile of one prefill and its decode steps of each serve
@@ -437,61 +456,64 @@ FA_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
           "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
 
 
-def flash_kernel_phase() -> dict:
-    """Flash attention, forward and backward, kernel vs plain version;
-    returns the largest errors at the path's shape, by direction."""
+def fa_case(tag, shape_q, dtype, causal, window, chunk=64) -> tuple:
+    """Flash attention forward and backward at ``shape_q`` against the
+    plain version, each within ``FA_TOL``; returns the largest errors
+    (forward, backward)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     from repro_torch.kernels.flash_attention.ops import kernel_route
+    q, k, v, do = _fa_inputs(0, shape_q, dtype)
+    kw = dict(causal=causal, window=window, q_chunk=chunk, kv_chunk=chunk)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
+    grads_r = flash_attention_bwd_ref(q, k, v, out_r, lse_r, do, **kw)
+    name = str(dtype)[6:]
+    (fr, fa), (gr, ga) = FA_TOL[name]
+    e_fwd = max(check_close(f"{tag} out", out, out_r, fr, fa),
+                check_close(f"{tag} lse", lse, lse_r, 1e-5, 1e-5))
+    e_bwd = 0.0
+    for n, g, r in zip(("dq", "dk", "dv"), grads, grads_r):
+        if g.dtype != q.dtype or g.shape != r.shape:
+            raise AssertionError(f"{tag} {n}: {g.dtype} {g.shape}")
+        e_bwd = max(e_bwd, check_close(f"{tag} {n}", g, r, gr, ga))
+    log(f"[kernels] flash_attention {tag} {name} causal={causal} "
+        f"window={window} ({kernel_route(dtype, shape_q[4], True)}): "
+        f"max abs err fwd {e_fwd:.3e} (rtol {fr}, atol {fa}), bwd "
+        f"{e_bwd:.3e} (rtol {gr}, atol {ga})")
+    return e_fwd, e_bwd
+
+
+def flash_kernel_phase() -> dict:
+    """Flash attention, forward and backward, kernel vs plain version;
+    returns the largest errors at the path's shape, by direction."""
+    import torch
 
     path_errs = {"fwd": 0.0, "bwd": 0.0}
-
-    def case(tag, shape_q, dtype, causal, window, chunk=64):
-        q, k, v, do = _fa_inputs(0, shape_q, dtype)
-        kw = dict(causal=causal, window=window, q_chunk=chunk,
-                  kv_chunk=chunk)
-        out, lse = flash_attention_fwd(q, k, v, **kw)
-        grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
-        torch.cuda.synchronize()
-        out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
-        grads_r = flash_attention_bwd_ref(q, k, v, out_r, lse_r, do, **kw)
-        name = str(dtype)[6:]
-        (fr, fa), (gr, ga) = FA_TOL[name]
-        e_fwd = max(check_close(f"{tag} out", out, out_r, fr, fa),
-                    check_close(f"{tag} lse", lse, lse_r, 1e-5, 1e-5))
-        e_bwd = 0.0
-        for n, g, r in zip(("dq", "dk", "dv"), grads, grads_r):
-            if g.dtype != q.dtype or g.shape != r.shape:
-                raise AssertionError(f"{tag} {n}: {g.dtype} {g.shape}")
-            e_bwd = max(e_bwd, check_close(f"{tag} {n}", g, r, gr, ga))
-        log(f"[kernels] flash_attention {tag} {name} causal={causal} "
-            f"window={window} ({kernel_route(dtype, shape_q[4], True)}): "
-            f"max abs err fwd {e_fwd:.3e} (rtol {fr}, atol {fa}), bwd "
-            f"{e_bwd:.3e} (rtol {gr}, atol {ga})")
-        return e_fwd, e_bwd
-
     # the reference's kernel-test cases, (B, H, S, D) -> G = 1
     for B, H, S, D in [(1, 2, 128, 32), (2, 1, 256, 64), (1, 2, 128, 80)]:
         for dtype in (torch.float32, torch.bfloat16):
             for causal, window in ((True, 0), (True, 48), (False, 0)):
-                case(f"({B},{H},{S},{D})", (B, S, H, 1, D), dtype, causal,
+                fa_case(f"({B},{H},{S},{D})", (B, S, H, 1, D), dtype, causal,
                      window)
     # GQA, ragged sequences and head widths that are not a multiple of 16,
     # on both routes (bf16: tensor cores; float32: CUDA cores)
     for dtype in (torch.float32, torch.bfloat16):
-        case("GQA (2,128,2,3,32)", (2, 128, 2, 3, 32), dtype, True, 0)
+        fa_case("GQA (2,128,2,3,32)", (2, 128, 2, 3, 32), dtype, True, 0)
         for S in (1, 100, 200):
             for causal, window in ((True, 0), (False, 30), (True, 24)):
-                case(f"ragged (1,{S},2,2,16)", (1, S, 2, 2, 16), dtype,
+                fa_case(f"ragged (1,{S},2,2,16)", (1, S, 2, 2, 16), dtype,
                      causal, window)
         for D in (8, 24, 40):
-            case(f"D={D} (1,130,2,2,{D})", (1, 130, 2, 2, D), dtype, True,
+            fa_case(f"D={D} (1,130,2,2,{D})", (1, 130, 2, 2, D), dtype, True,
                  48)
     for dtype in (torch.bfloat16, torch.float32):
-        e_fwd, e_bwd = case(f"path {FA_PATH}", FA_PATH, dtype, True, 0,
+        e_fwd, e_bwd = fa_case(f"path {FA_PATH}", FA_PATH, dtype, True, 0,
                             chunk=1024)
         if dtype == torch.bfloat16:
             path_errs = {"fwd": e_fwd, "bwd": e_bwd}
@@ -709,9 +731,9 @@ class PhaseTimer:
     """Host clock around each trainer phase, synchronised with the card at
     both ends, so a phase's time includes its kernels."""
 
-    def __init__(self, sync: bool):
+    def __init__(self, sync: bool, phases=PHASES):
         self.sync = sync
-        self.ms = {p: [] for p in PHASES}
+        self.ms = {p: [] for p in phases}
 
     def __call__(self, name, epoch):
         timer = self
@@ -969,6 +991,349 @@ def tiny_phase():
         f"{speedups[0]:.4f}x vs uncoded, {speedups[1]:.4f}x vs cyclic")
 
 
+# --------------------------------------------------------------------- #
+# the paper's experiment (FELTrainer) and the LM training loop
+# --------------------------------------------------------------------- #
+#: FELTrainer runs: 4 schemes x these backends, SGD-momentum (the AdamW
+#: parity limit of ROADMAP.md §3 rules AdamW out of an rtol 1e-5 check)
+FEL_BACKENDS = ("instant", "cluster")
+FEL_PHASES = ("plan", "draw", "stack", "copy", "step")
+FEL_LR = 1e-2
+FEL_M1 = 3
+#: examples a partition of the card-vs-CPU runs
+FEL_SMALL = 64
+#: C1: every scheme's params against the straggler-free uncoded run's
+C1_TOL = (1e-5, 1e-6)
+FEL_HOST_FIELDS = ("time", "utilization", "n_stragglers", "redundancy",
+                   "efficiency", "compute_time", "comm_time", "decode_ok")
+#: ``launch.train.train`` at stablelm-1.6b full size (24 layers)
+LM_TRAIN = dict(steps=3, batch=1, seq=1024, workers=6, straggler_prob=0.2,
+                lr=3e-4)
+#: sequences of 1,024 tokens in the plain step
+LM_PLAIN_BATCH = 4
+#: the coded gradient against the full-batch gradient (relative error in
+#: norm, of the whole gradient and of its largest leaf), read against the
+#: gradient's own conditioning in bf16: it must be within the change that
+#: ``nudge_sensitivity``'s nudge (every float32 weight moved by -1, 0 or
+#: +1 ulp) makes in the full-batch gradient, and within this many times
+#: the difference of two exact routes to the full-batch gradient that
+#: round in other places (one batch of the K sequences against the sum of
+#: two half batches).  The first measurement (an H100 80GB HBM3 at 700 W,
+#: full size): coded 2.4e-5 in norm (1.9e-4 in the largest leaf), the two
+#: routes 9.0e-4 (2.3e-3), the nudge 1.27: at these random weights a
+#: one-ulp nudge moves the gradient by more than its norm, so the nudge
+#: bounds nothing and the routes' difference carries the check.  On the
+#: CPU, at a 2-layer cut of the REDUCED config, the coded error was 1.1-1.4x
+#: the routes' difference.
+GRAD_ROUTE_FACTOR = 4.0
+
+
+class _Memo:
+    """A dataset whose partitions are drawn once and kept: the runs of the
+    FEL phase see the same bytes, and only the first run pays the draws."""
+
+    def __init__(self, data):
+        self.data, self.K, self.memo = data, data.K, {}
+
+    def partition(self, epoch, k):
+        if (epoch, k) not in self.memo:
+            self.memo[(epoch, k)] = self.data.partition(epoch, k)
+        return self.memo[(epoch, k)]
+
+
+def _fel_runs(n, device, timed: bool):
+    """4 schemes x ``FEL_BACKENDS`` x ``EPOCHS`` of ``FELTrainer`` with the
+    paper's MLP, ``n`` examples a partition, on ``device``; returns
+    ``{(backend, scheme): (logs, flat params, timer)}``."""
+    import torch
+
+    from repro_torch.core.fel import FELTrainer
+    from repro_torch.data.pipeline import SyntheticClassificationDataset
+    from repro_torch.models.mlp import init_mlp, per_slot_mlp_loss
+    from repro_torch.optim.optimizers import sgd_momentum, tree_leaves
+    from repro_torch.sim import scenario_spec
+
+    spec = scenario_spec(SCENARIO)
+    params = init_mlp(torch.Generator().manual_seed(0), DIMS, device="cpu")
+    data = _Memo(SyntheticClassificationDataset(
+        spec.K, n, DIMS[0], DIMS[-1], seed=0, device="cpu"))
+    out = {}
+    for backend in FEL_BACKENDS:
+        kw = (dict(cluster=spec) if backend == "cluster" else
+              dict(M1=FEL_M1, s=1, noise_scale=0.0))
+        for scheme in SCHEMES:
+            timer = PhaseTimer(device == "cuda", FEL_PHASES) if timed \
+                else None
+            tr = FELTrainer(scheme, spec.M, spec.K, data, per_slot_mlp_loss,
+                            sgd_momentum(FEL_LR), params, seed=0,
+                            device=device, phase_timer=timer, **kw)
+            logs = tr.run(EPOCHS)
+            flat = torch.cat([p.reshape(-1) for p in tree_leaves(tr.params)])
+            out[(backend, scheme)] = (logs, flat, timer)
+    return out
+
+
+def fel_phase() -> dict:
+    """The paper's experiment on the card: ``FELTrainer``, the MLP at its
+    full size, 4 schemes x 2 backends x 3 epochs; C1 against the
+    straggler-free uncoded run; the same runs on the CPU and the card at
+    ``FEL_SMALL`` examples.  Returns the runs' phase timers."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    runs = _fel_runs(EXAMPLES_PER_PARTITION, "cuda", timed=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"[fel] MLP {DIMS}, {EXAMPLES_PER_PARTITION} examples a partition, "
+        f"SGD-momentum({FEL_LR}): {len(SCHEMES)} schemes x "
+        f"{len(FEL_BACKENDS)} backends x {EPOCHS} epochs on the card in "
+        f"{wall:.2f} s; launches {launches} (the loss-weighted step "
+        f"decodes inside its one backward: no kernel of the port)")
+    if launches != no_launches():
+        raise AssertionError(f"the FEL path launched {launches}")
+    for (backend, scheme), (logs, flat, timer) in runs.items():
+        for lg in logs:
+            if math.isnan(lg.loss) == lg.decode_ok:
+                raise AssertionError(f"{backend} {scheme} epoch "
+                                     f"{lg.epoch}: decode_ok "
+                                     f"{lg.decode_ok}, loss {lg.loss}")
+            ms = {p: timer.ms[p][lg.epoch] for p in FEL_PHASES}
+            log(f"[fel] {backend} {scheme} epoch {lg.epoch}: decode_ok="
+                f"{lg.decode_ok} time={lg.time:.4f} compute="
+                f"{lg.compute_time:.4f} comm={lg.comm_time:.4f} util="
+                f"{lg.utilization:.3f} stragglers={lg.n_stragglers} "
+                f"redundancy={lg.redundancy:.3f} loss={lg.loss:.6f}; ms "
+                + ", ".join(f"{p} {v:.1f}" for p, v in ms.items()))
+        if not torch.isfinite(flat).all():
+            raise AssertionError(f"{backend} {scheme}: non-finite params")
+    # C1: exact gradient recovery, whatever the stragglers
+    ref = runs[("instant", "uncoded")][1]
+    n_c1 = 0
+    for (backend, scheme), (logs, flat, _) in runs.items():
+        if not all(lg.decode_ok for lg in logs):
+            log(f"[fel] C1 {backend} {scheme}: a failed decode (a zero-"
+                f"weight step), not compared")
+            continue
+        err = check_close(f"C1 {backend} {scheme} vs straggler-free "
+                          f"uncoded", flat, ref, *C1_TOL)
+        n_c1 += 1
+        log(f"[fel] C1 {backend} {scheme} "
+            f"({sum(lg.n_stragglers for lg in logs)} stragglers in "
+            f"{EPOCHS} epochs) vs straggler-free uncoded: max abs err "
+            f"{err:.3e} (rtol {C1_TOL[0]}, atol {C1_TOL[1]})")
+    if n_c1 < len(SCHEMES):
+        raise AssertionError(f"C1 compared only {n_c1} runs")
+    # the same runs on the CPU and on the card at FEL_SMALL examples
+    t1 = time.perf_counter()
+    cpu = _fel_runs(FEL_SMALL, "cpu", timed=False)
+    card = _fel_runs(FEL_SMALL, "cuda", timed=False)
+    worst = 0.0
+    for key, (logs, flat, _) in cpu.items():
+        for lc, lg in zip(logs, runs[key][0]):
+            got = tuple(getattr(lc, f) for f in FEL_HOST_FIELDS)
+            want = tuple(getattr(lg, f) for f in FEL_HOST_FIELDS)
+            if got != want:
+                raise AssertionError(f"{key} epoch {lc.epoch}: CPU {got}, "
+                                     f"card {want}")
+        worst = max(worst, check_close(f"{key} params, CPU vs card",
+                                       flat, card[key][1].cpu(), *C1_TOL))
+    log(f"[fel] the same runs at {FEL_SMALL} examples a partition on the "
+        f"CPU: host outcomes ({', '.join(FEL_HOST_FIELDS)}) equal to the "
+        f"card's full-size runs in every epoch; params against the card's "
+        f"at {FEL_SMALL}: max abs err {worst:.3e} (rtol {C1_TOL[0]}, atol "
+        f"{C1_TOL[1]}); {time.perf_counter() - t1:.1f} s")
+    timers = {key: timer for key, (_, _, timer) in runs.items()}
+    del runs, cpu, card
+    torch.cuda.empty_cache()
+    log(f"[fel] phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"wall_s": wall, "timers": timers}
+
+
+def _rel_errs(got, want) -> tuple:
+    """(relative error in norm of the whole tree, of its largest leaf)."""
+    from repro_torch.optim.optimizers import tree_leaves
+    num = den = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        num += float((g.double() - w.double()).square().sum())
+        den += float(w.double().square().sum())
+    big = max(range(len(tree_leaves(want))),
+              key=lambda i: tree_leaves(want)[i].numel())
+    g, w = tree_leaves(got)[big].double(), tree_leaves(want)[big].double()
+    return (math.sqrt(num / den),
+            float((g - w).norm() / w.norm()), tuple(w.shape))
+
+
+def lm_train_phase() -> dict:
+    """``repro_torch.launch.train.train`` at stablelm-1.6b's full size: the
+    coded path, the plain path, and the coded gradient against the
+    full-batch gradient."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.coded_step import (_value_and_grad,
+                                             make_coded_train_step,
+                                             slot_batch)
+    from repro_torch.core.runtime import TwoStageRuntime
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.train import per_slot_lm_loss, train
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.optim.optimizers import Optimizer, tree_leaves
+
+    cfg = get_config("stablelm-1.6b")
+    L, S, M = cfg.n_layers, LM_TRAIN["seq"], LM_TRAIN["workers"]
+    t_phase = time.perf_counter()
+    log(f"[lmtrain] {cfg.name}: {L} layers (full depth), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, compute {cfg.compute_dtype}, "
+        f"remat {cfg.remat}; coded: M = {M} workers, K = {2 * M} "
+        f"partitions of {LM_TRAIN['batch']} x {S} tokens, AdamW("
+        f"{LM_TRAIN['lr']})")
+    def say(msg):
+        log(f"[lmtrain] {msg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = train(cfg, coded=True, device="cuda", log_every=1, log=say,
+                **LM_TRAIN)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = LM_TRAIN["steps"]
+    want = no_launches(flash_attention_fwd=2 * L * n,
+                       flash_attention_bwd=L * n)
+    for i, step in enumerate(out["step"]):
+        log(f"[lmtrain] coded step {step}: n_slots {out['n_slots'][i]} -> "
+            f"{M * out['n_slots'][i]} sequences of {S}, decode_ok "
+            f"{out['decode_ok'][i]}, sim_time {out['sim_time'][i]:.4f}, "
+            f"loss {out['loss'][i]:.6f}; ms: plan "
+            f"{out['plan_ms'][i]:.1f}, data {out['data_ms'][i]:.1f}, step "
+            f"{out['step_ms'][i]:.1f}")
+    log(f"[lmtrain] coded path: launches {launches} (the path implies "
+        f"{want}: forward twice a layer under remat, backward once); peak "
+        f"device memory {peak} bytes ({peak / 1e9:.2f} GB)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, the path implies "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in out["loss"]):
+        raise AssertionError(f"coded losses {out['loss']}")
+    coded = {k: out[k] for k in ("n_slots", "step_ms", "plan_ms",
+                                 "data_ms", "loss")}
+    coded.update(peak=peak, launches=launches,
+                 shape=(M * max(out["n_slots"]), S, cfg.n_kv_heads,
+                        cfg.n_heads // cfg.n_kv_heads, cfg.head_dim))
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the attention kernels at the largest shape the coded path gave them
+    coded["fa_errs"] = fa_case(f"lm_train path {coded['shape']}",
+                               coded["shape"], torch.bfloat16, True, 0,
+                               chunk=1024)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = train(cfg, steps=1, batch=LM_PLAIN_BATCH, seq=S, lr=LM_TRAIN["lr"],
+                coded=False, device="cuda", log=say)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    plain_peak = torch.cuda.max_memory_allocated()
+    want = no_launches(flash_attention_fwd=2 * L, flash_attention_bwd=L)
+    log(f"[lmtrain] plain step ({LM_PLAIN_BATCH} x {S} tokens, clip_norm "
+        f"1.0): {out['step_ms'][0]:.1f} ms, loss {out['loss'][0]:.6f}, "
+        f"grad norm {out['grad_norm'][0]:.4f}; launches {launches} (the "
+        f"path implies {want}); peak {plain_peak / 1e9:.2f} GB")
+    if launches != want or not math.isfinite(out["loss"][0]):
+        raise AssertionError(f"plain step: launches {launches}, loss "
+                             f"{out['loss']}")
+    plain = {"step_ms": out["step_ms"][0], "peak": plain_peak,
+             "launches": launches}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the coded gradient of one step against the gradient of the sum of
+    # the K partitions' mean CE, taken directly (transformer.loss_fn over
+    # the K sequences, each partition's weights summing to one)
+    counts = read_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    runtime = TwoStageRuntime(M, 2 * M, max(M // 2, 2),
+                              rates=np.linspace(1.0, 4.0, M),
+                              straggler_prob=LM_TRAIN["straggler_prob"],
+                              seed=0)
+    epoch = 0
+    res = runtime.run_epoch(epoch)
+    while not res.decode_ok:
+        epoch += 1
+        res = runtime.run_epoch(epoch)
+    data = SyntheticLMDataset(2 * M, LM_TRAIN["batch"], S, cfg.vocab,
+                              device="cpu")
+    seen = []
+
+    def capture(grads, state, p):
+        seen.append(grads)
+        return p, state
+    step = make_coded_train_step(per_slot_lm_loss(cfg),
+                                 Optimizer(init=lambda p: (), update=capture))
+    _, _, aux = step(params, (), slot_batch(data, epoch, res.plan, "cuda"),
+                     torch.as_tensor(res.weights, dtype=torch.float32,
+                                     device="cuda"))
+    g_coded = seen.pop()
+    parts = [data.partition(epoch, k) for k in range(2 * M)]
+    full = {key: torch.cat([p[key] for p in parts]).to("cuda")
+            for key in parts[0]}
+    direct = _value_and_grad(lambda p, b: loss_fn(p, b, cfg))
+    loss_d, g_direct = direct(params, full)
+    err = _rel_errs(g_coded, g_direct)
+    del g_coded
+    halves = [{key: v[i:i + M] for key, v in full.items()}
+              for i in (0, M)]
+    g_route = direct(params, halves[0])[1]
+    for a, b in zip(tree_leaves(g_route),
+                    tree_leaves(direct(params, halves[1])[1])):
+        a.add_(b)
+    route = _rel_errs(g_route, g_direct)
+    del g_route
+    nudged = ulp_nudge(params)
+    del params
+    sens = _rel_errs(direct(nudged, full)[1], g_direct)
+    del nudged, g_direct
+    torch.cuda.synchronize()
+    check_launches = {k: v - counts[k] for k, v in read_counts().items()}
+    set_counts(counts)                   # these launches are not a path's
+    log(f"[lmtrain] decoded vs full-batch gradient (epoch {epoch}, "
+        f"{res.plan.n_slots} slots, {M * res.plan.n_slots} sequences, "
+        f"against the {2 * M} partitions once), relative error in norm of "
+        f"the whole gradient and of its largest leaf {err[2]}: "
+        f"{err[0]:.3e}, {err[1]:.3e}; two exact routes (one batch, two "
+        f"halves): {route[0]:.3e}, {route[1]:.3e}; a one-ulp nudge of "
+        f"every weight: {sens[0]:.3e}, {sens[1]:.3e}; bound: the nudge's "
+        f"and {GRAD_ROUTE_FACTOR} x the routes'; losses coded "
+        f"{float(aux['loss']):.6f}, direct {float(loss_d):.6f}; launches "
+        f"of the check (apart) {check_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i in (0, 1):
+        if not (err[i] <= sens[i] and
+                err[i] <= GRAD_ROUTE_FACTOR * route[i]):
+            raise AssertionError(f"decoded gradient off the full-batch "
+                                 f"one: {err[:2]} against {sens[:2]} and "
+                                 f"{GRAD_ROUTE_FACTOR} x {route[:2]}")
+    if not math.isclose(float(aux["loss"]), float(loss_d), rel_tol=2 ** -8):
+        raise AssertionError(f"coded loss {float(aux['loss'])}, direct "
+                             f"{float(loss_d)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[lmtrain] phase wall time {wall:.1f} s")
+    return {"coded": coded, "plain": plain, "grad_err": err,
+            "grad_route": route, "grad_sens": sens, "wall_s": wall}
+
+
 def serve_config(**over):
     from repro_torch.configs.rwkv6_1_6b import FULL
     return dataclasses.replace(FULL, **over)
@@ -1061,12 +1426,9 @@ RG_TF_TOL = {"bfloat16": (0.25, 0.25), "float32": (1e-3, 1e-3)}
 BF16_AS_CLOSE = 1.05
 
 
-def nudge_sensitivity(params, cfg, tokens, start, seed=0) -> tuple:
-    """How far a fresh forward's logits move when every weight moves by
-    -1, 0 or +1 float32 ulp, drawn entry by entry: the model's own
-    conditioning at these weights, against which a difference of two
-    routes in float32 is read.  Returns (max abs change as a fraction of
-    the largest |logit|, norm rel change)."""
+def ulp_nudge(tree, seed=0):
+    """Every float32 weight moved by -1, 0 or +1 ulp, drawn entry by
+    entry on the card from ``seed``."""
     import torch
 
     from repro_torch.optim.optimizers import tree_map
@@ -1078,8 +1440,17 @@ def nudge_sensitivity(params, cfg, tokens, start, seed=0) -> tuple:
         up = torch.nextafter(x, torch.full_like(x, math.inf))
         down = torch.nextafter(x, torch.full_like(x, -math.inf))
         return torch.where(d > 0, up, torch.where(d < 0, down, x))
+    return tree_map(nudge, tree)
+
+
+def nudge_sensitivity(params, cfg, tokens, start, seed=0) -> tuple:
+    """How far a fresh forward's logits move when every weight moves by
+    -1, 0 or +1 float32 ulp, drawn entry by entry: the model's own
+    conditioning at these weights, against which a difference of two
+    routes in float32 is read.  Returns (max abs change as a fraction of
+    the largest |logit|, norm rel change)."""
     ref = forward_logits(params, cfg, tokens, start)
-    moved = forward_logits(tree_map(nudge, params), cfg, tokens, start)
+    moved = forward_logits(ulp_nudge(params, seed), cfg, tokens, start)
     return (float((moved - ref).abs().max() / ref.abs().max()),
             float((moved - ref).norm() / ref.norm()))
 
@@ -1773,6 +2144,17 @@ def phase_split(tag, timer, logs):
         f"{sum(timer.ms['cosim']) / max(slots, 1):.4f} ms per slot")
 
 
+def fel_split(fel) -> None:
+    """Median ms of each FEL phase over each backend's epochs, by scheme:
+    the host's slot-batch assembly (draws, stack), the copy, the step."""
+    import numpy as np
+    for (backend, scheme), timer in fel["timers"].items():
+        log(f"[times] fel {backend} {scheme}: " + ", ".join(
+            f"{p} {float(np.median(timer.ms[p])):.1f} ms" for p in FEL_PHASES)
+            + " (median of its epochs; draws are paid by the first run "
+            "only)")
+
+
 def lm_shard_profile():
     """One shard's forward and backward on the transformer path under
     ``torch.profiler``: device time by kernel family, and the share of the
@@ -1783,7 +2165,7 @@ def lm_shard_profile():
 
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.models.transformer import init_params, loss_fn
-    from repro_torch.train.coded_trainer import _value_and_grad
+    from repro_torch.core.coded_step import _value_and_grad
 
     cfg = lm_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
@@ -1833,7 +2215,7 @@ def lm_shard_profile():
 
 
 def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
-                rg_errs) -> list:
+                rg_errs, fel, lmt) -> list:
     from collections import Counter
 
     import numpy as np
@@ -1865,6 +2247,20 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         f"their launches: "
         f"{(lm_launches['flash_attention_fwd'] * bf['fwd_ms'] + lm_launches['flash_attention_bwd'] * bf['bwd_ms']) / n_ep:.1f} ms")  # noqa: E501
     lm_shard_profile()
+    fel_split(fel)
+    fa_lt = flash_times(torch.bfloat16, lmt["coded"]["shape"])
+    lt = lmt["coded"]
+    n_steps = len(lt["step_ms"])
+    log(f"[times] lmtrain coded step: median "
+        f"{float(np.median(lt['step_ms'])):.1f} ms (plan "
+        f"{float(np.median(lt['plan_ms'])):.1f}, data "
+        f"{float(np.median(lt['data_ms'])):.1f}) at n_slots "
+        f"{lt['n_slots']}; attention from the kernels' timed cost at "
+        f"{lt['shape']} x their launches: "
+        f"{(lt['launches']['flash_attention_fwd'] * fa_lt['fwd_ms'] + lt['launches']['flash_attention_bwd'] * fa_lt['bwd_ms']) / n_steps:.1f} "  # noqa: E501
+        f"ms a step; peak {lt['peak'] / 1e9:.2f} GB; plain step "
+        f"{lmt['plain']['step_ms']:.1f} ms, peak "
+        f"{lmt['plain']['peak'] / 1e9:.2f} GB")
     K = scenario_spec(SCENARIO).K
     log(f"[times] mlp data for one epoch (K partitions x "
         f"{EXAMPLES_PER_PARTITION} examples): "
@@ -1923,6 +2319,28 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "ms": bf["bwd_ms"], "plain_ms": bf["plain_bwd_ms"],
         "bound_ms": bf["bwd_bound_ms"], "bound_by": bf["bwd_bound_by"],
         "library_ms": bf["sdpa_bwd_ms"]}, {
+        "name": "flash_attention_fwd_lm_train", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, FA_PATH[4]),
+        "shape": list(lt["shape"]),
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:88",
+        "launches": lt["launches"]["flash_attention_fwd"] +
+        lmt["plain"]["launches"]["flash_attention_fwd"],
+        "max_abs_err": lt["fa_errs"][0],
+        "ms": fa_lt["fwd_ms"], "plain_ms": fa_lt["plain_fwd_ms"],
+        "bound_ms": fa_lt["fwd_bound_ms"], "bound_by": fa_lt["fwd_bound_by"],
+        "library_ms": fa_lt["sdpa_fwd_ms"]}, {
+        "name": "flash_attention_bwd_lm_train", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, FA_PATH[4], True),
+        "shape": list(lt["shape"]),
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/attention.py:204",
+        "launches": lt["launches"]["flash_attention_bwd"] +
+        lmt["plain"]["launches"]["flash_attention_bwd"],
+        "max_abs_err": lt["fa_errs"][1],
+        "ms": fa_lt["bwd_ms"], "plain_ms": fa_lt["plain_bwd_ms"],
+        "bound_ms": fa_lt["bwd_bound_ms"], "bound_by": fa_lt["bwd_bound_by"],
+        "library_ms": fa_lt["sdpa_bwd_ms"]}, {
         "name": "rwkv6_wkv", "route": "cuda",
         "design": "chunked exact, L=16, 3xTF32 tensor-core products",
         "source": f"{src}/rwkv6_wkv/csrc/rwkv6_wkv.cu",
@@ -1962,10 +2380,12 @@ def main() -> int:
     mlp = mlp_phase()
     lm = lm_phase()
     tiny_phase()
+    fel = fel_phase()
+    lmt = lm_train_phase()
     served = serve_phase()
     rg_out = rg_serve_phase()
     kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
-                          rg_errs)
+                          rg_errs, fel, lmt)
     import torch
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)

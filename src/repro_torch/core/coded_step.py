@@ -1,21 +1,33 @@
-"""Slot layout of a coded epoch: which partition each worker computes in
-each slot, with which coding coefficient.
+"""Coded gradient train step: the paper's pipeline as one ordinary step.
 
-The numpy half of ``repro.core.coded_step`` (``SlotPlan``,
-``build_slot_plan``, ``slot_weights``), copied so that the port never
-imports the JAX package.  The host-side ``TwoStageRuntime`` builds the slot
-assignment and the per-slot weights ``a_m·B[m,k]`` each epoch; the
-training bridge reads the epoch's coding matrix and decode weights back
-off them.
+The torch counterpart of ``repro.core.coded_step``:
+
+  encode  = a weighting of the per-slot losses (gradient linearity: one
+            backward over coefficient-weighted losses IS the coded partial
+            gradient Σ_k B[m,k]·g_k)
+  decode  = each worker's losses further scaled by its decode weight a_m:
+            ∇ Σ_m a_m Σ_s c_{m,s} ℓ(slot_{m,s})  =  Σ_m a_m ĝ_m  =  Σ_k g_k
+
+so one backward gives the exact full-batch gradient, and the straggler
+pattern enters as data (the weights).  The host-side ``TwoStageRuntime``
+builds the slot assignment (``SlotPlan``) and the per-slot weights
+``a_m·B[m,k]`` each epoch; the training bridge reads the epoch's coding
+matrix and decode weights back off them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["SlotPlan", "build_slot_plan", "slot_weights"]
+from repro_torch.optim.optimizers import (clip_by_global_norm, tree_leaves,
+                                          tree_map, tree_unflatten)
+
+__all__ = ["SlotPlan", "build_slot_plan", "slot_weights", "slot_batch",
+           "make_train_step", "make_coded_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,3 +75,87 @@ def slot_weights(plan: SlotPlan, decode_w: np.ndarray) -> np.ndarray:
     w = plan.slot_coeff * decode_w[:, None]
     w[plan.slot_partition < 0] = 0.0
     return w
+
+
+def slot_batch(dataset, epoch: int, plan: SlotPlan, device,
+               phase: Optional[Callable] = None) -> dict:
+    """``{key: (M, n_slots, ...)}`` on ``device``: slot (m, s) holds
+    partition ``plan.slot_partition[m, s]`` of ``dataset`` at ``epoch``
+    (each partition drawn once), an unused slot zeros.  The slots are
+    stacked where the dataset lives and copied to ``device`` once.
+    ``phase(name)``, when given, is a context-manager factory wrapped
+    around ``draw``, ``stack`` and ``copy``."""
+    phase = phase or (lambda name: contextlib.nullcontext())
+    with phase("draw"):
+        used = sorted({0} | {int(k) for k in plan.slot_partition.flat
+                             if k >= 0})
+        parts = {k: dataset.partition(epoch, k) for k in used}
+        zeros = {key: torch.zeros_like(v) for key, v in parts[0].items()}
+    with phase("stack"):
+        slots = [parts[int(k)] if k >= 0 else zeros
+                 for k in plan.slot_partition.flat]
+        stacked = {key: torch.stack([src[key] for src in slots]).reshape(
+            (plan.M, plan.n_slots) + tuple(zeros[key].shape))
+            for key in zeros}
+    with phase("copy"):
+        return {key: v.to(device) for key, v in stacked.items()}
+
+
+# --------------------------------------------------------------------- #
+def _value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, *args) -> (loss, grads)`` by autograd, leaving the
+    caller's tensors untouched."""
+    def fn(params, *args):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, *args)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.detach(), tree_unflatten(live, grads)
+    return fn
+
+
+def make_train_step(loss_fn: Callable, optimizer, *,
+                    grad_transform: Optional[Callable] = None,
+                    clip_norm: float = 0.0) -> Callable:
+    """Standard step: ``(params, opt_state, batch) -> (params, opt_state,
+    aux)``.
+
+    ``loss_fn(params, batch) -> scalar``; ``aux`` holds ``loss`` and
+    ``grad_norm`` (the global norm before clipping, 0 without
+    ``clip_norm``).  ``grad_transform(grads) -> grads`` hooks in gradient
+    compression.
+    """
+    grad = _value_and_grad(loss_fn)
+
+    def step(params, opt_state, batch):
+        loss, grads = grad(params, batch)
+        gn = torch.zeros((), device=loss.device)
+        if clip_norm:
+            grads, gn = clip_by_global_norm(grads, clip_norm)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gn}
+
+    return step
+
+
+def make_coded_train_step(per_slot_loss_fn: Callable,
+                          optimizer) -> Callable:
+    """Coded step over slotted batches: ``(params, opt_state, slot_batch,
+    weights) -> (params, opt_state, {"loss"})``.
+
+    ``per_slot_loss_fn(params, slot_batch) -> (M, n_slots)`` per-slot mean
+    losses.  The step contracts them with the runtime's weight matrix
+    (a_m·B[m,k]) and takes one backward: by linearity its gradient is the
+    exact decoded full gradient.
+    """
+    grad = _value_and_grad(
+        lambda p, slot_batch, weights: torch.sum(
+            per_slot_loss_fn(p, slot_batch) * weights))
+
+    def step(params, opt_state, slot_batch, weights):
+        loss, grads = grad(params, slot_batch, weights)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+
+    return step

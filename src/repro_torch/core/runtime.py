@@ -39,8 +39,9 @@ from repro_torch.core.coded_step import (SlotPlan, build_slot_plan,
 
 __all__ = ["CompletionDraws", "CompletionTimeModel", "ComputePhase",
            "EpochResult", "TwoStageRuntime", "build_epoch_backend",
-           "sample_batched", "single_stage_accounting",
-           "stage1_accounting", "stage1_deadline", "twostage_slot_bound"]
+           "sample_batched", "simulate_epoch_single_stage",
+           "single_stage_accounting", "stage1_accounting",
+           "stage1_deadline", "twostage_slot_bound"]
 
 
 @dataclasses.dataclass
@@ -532,3 +533,35 @@ def single_stage_accounting(t: np.ndarray, tasks: np.ndarray,
     executed = float(np.sum(tasks * np.minimum(tf, cutoff)
                             / np.maximum(tf, 1e-12)))
     return useful, total, executed
+
+
+def simulate_epoch_single_stage(scheme: CodingScheme,
+                                time_model: CompletionTimeModel,
+                                rng, wait_for: Optional[int] = None) -> dict:
+    """Baseline epoch (CRS/FRS/uncoded) under the instant uplink: all M
+    workers start together and decode waits for the M-s fastest.
+
+    Returns the decode weights, the epoch time, the alive mask and the
+    utilization inputs.  A failed decode has zero weights, ``ok`` False and
+    the time of the last finite worker.
+    """
+    M = scheme.M
+    tasks = scheme.copies_per_worker
+    t = time_model.sample(np.arange(M), tasks, rng)
+    need = wait_for if wait_for is not None else M - scheme.s
+    order = np.argsort(np.where(np.isfinite(t), t, np.inf))
+    alive = np.zeros(M, bool)
+    alive[order[:need]] = True
+    alive &= np.isfinite(t)
+    time = float(np.max(t[alive], initial=0.0))
+    try:
+        a = decode_weights(scheme, alive)
+        ok = True
+    except ValueError:
+        a = np.zeros(M)
+        ok = False
+        time = float(np.max(np.where(np.isfinite(t), t, 0.0)))
+    useful, total, executed = single_stage_accounting(t, tasks, alive, time)
+    return {"decode_w": a, "time": time, "alive": alive, "ok": ok,
+            "useful_task_time": useful, "total_task_time": total,
+            "redundancy": scheme.redundancy, "executed_tasks": executed}

@@ -26,15 +26,11 @@ import torch
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.lyapunov import (Observation, init_queues, jain_index,
                                        make_system_params, schedule_slot)
+from repro_torch.launch.train import TINY
 from repro_torch.models.transformer import (decode_step, init_params,
                                             pad_cache, prefill)
 
 __all__ = ["TINY", "main", "serve"]
-
-#: The reference's tiny dense config (``repro.launch.train.TINY``).
-TINY = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=128,
-                   n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
-                   vocab=512)
 
 
 def _generate(params, tokens, cfg: ModelConfig, gen_len: int, sync):

@@ -11,8 +11,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["init_mlp", "mlp_logits", "mlp_loss", "mlp_accuracy",
-           "params_from_numpy"]
+__all__ = ["init_mlp", "mlp_logits", "mlp_loss", "per_slot_mlp_loss",
+           "mlp_accuracy", "params_from_numpy"]
 
 
 def init_mlp(generator: Optional[torch.Generator] = None,
@@ -51,6 +51,17 @@ def mlp_loss(params, batch) -> torch.Tensor:
     ll = torch.log_softmax(mlp_logits(params, batch["x"]), dim=-1)
     y = batch["y"].long()              # torch.gather indexes with int64
     return -torch.mean(torch.gather(ll, 1, y[:, None]))
+
+
+def per_slot_mlp_loss(params, slot_batch) -> torch.Tensor:
+    """slot_batch: {'x': (M, S, n, D), 'y': (M, S, n)} -> (M, S) mean CE
+    of each slot (the loss interface of ``make_coded_train_step``)."""
+    x, y = slot_batch["x"], slot_batch["y"]
+    M, S, n, D = x.shape
+    ll = torch.log_softmax(mlp_logits(params, x.reshape(M * S * n, D)),
+                           dim=-1)
+    ce = -torch.gather(ll, 1, y.reshape(-1, 1).long())[:, 0]
+    return ce.reshape(M, S, n).mean(-1)
 
 
 def mlp_accuracy(params, batch) -> torch.Tensor:

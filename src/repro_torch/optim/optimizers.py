@@ -43,6 +43,8 @@ def _build(t, it) -> Any:
     if isinstance(t, dict):
         built = {k: _build(t[k], it) for k in sorted(t)}
         return {k: built[k] for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):     # a NamedTuple
+        return type(t)(*(_build(x, it) for x in t))
     if isinstance(t, (list, tuple)):
         return type(t)(_build(x, it) for x in t)
     return next(it)

@@ -40,11 +40,11 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.coded_step import _value_and_grad
 from repro_torch.core.runtime import EpochResult
 from repro_torch.kernels.coded_reduce import coded_reduce
 from repro_torch.models import transformer
-from repro_torch.optim.optimizers import (tree_leaves, tree_map,
-                                          tree_unflatten)
+from repro_torch.optim.optimizers import tree_map
 from repro_torch.sim.spec import ScenarioSpec, build_cluster
 from repro_torch.train.partition import (DEFAULT_BYTES_PER_UNIT,
                                          GradPartition)
@@ -90,17 +90,6 @@ def decode_weights_from_result(result: EpochResult) -> np.ndarray:
         if live.size:
             a[m] = w[m, live[0]] / coeff[m, live[0]]
     return a
-
-
-def _value_and_grad(loss_fn: Callable) -> Callable:
-    """``(params, batch) -> (loss, grads)`` by autograd, leaving the
-    caller's tensors untouched."""
-    def fn(params, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-        return loss.detach(), tree_unflatten(live, grads)
-    return fn
 
 
 class CodedTrainer:

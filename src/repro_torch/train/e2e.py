@@ -29,12 +29,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.coded_step import _value_and_grad
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.optim.optimizers import adamw
 from repro_torch.sim.cluster import SCHEMES
 from repro_torch.sim.scenarios import scenario_spec
-from repro_torch.train.coded_trainer import CodedTrainer, _value_and_grad
+from repro_torch.train.coded_trainer import CodedTrainer
 from repro_torch.train.curves import curve_dict, loss_curve, time_to_target
 
 __all__ = ["TINY", "reduced_config", "run_benchmark"]

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions, the
-coded-training bridge decoding through them, and the rwkv6 and
-recurrentgemma models on the card against the CPU.
+coded-training bridge decoding through them, the rwkv6 and
+recurrentgemma models on the card against the CPU, and the paper's
+``FELTrainer`` and the LM training loop on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -501,3 +502,71 @@ def test_recurrentgemma_model_on_card_matches_cpu_and_counts_launches(
             steps.append(lg)
         out.append(torch.stack(steps).cpu().numpy())
     np.testing.assert_allclose(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# the paper's experiment and the LM training loop
+# --------------------------------------------------------------------- #
+FEL_HOST_FIELDS = ("epoch", "time", "utilization", "n_stragglers",
+                   "redundancy", "efficiency", "compute_time", "comm_time",
+                   "decode_ok")
+
+
+@pytest.mark.parametrize("backend", ["instant", "cluster"])
+@pytest.mark.parametrize("scheme", ["two-stage", "cyclic", "fractional",
+                                    "uncoded"])
+def test_fel_trainer_on_card_matches_cpu(cuda_device, scheme, backend):
+    from repro_torch.core.fel import FELTrainer
+    from repro_torch.models.mlp import per_slot_mlp_loss
+    from repro_torch.optim.optimizers import sgd_momentum
+
+    params = init_mlp(torch.Generator().manual_seed(0), (32, 32, 4),
+                      device="cpu")
+    kw = (dict(cluster=scenario_spec("bursty-stragglers"))
+          if backend == "cluster" else
+          dict(M1=4, s=1, rates=np.array([2.0, 2.0, 4.0, 4.0, 8.0, 8.0]),
+               noise_scale=0.3, fault_prob=0.1, straggler_prob=0.2))
+    runs = {}
+    for device in ("cpu", cuda_device):
+        data = SyntheticClassificationDataset(6, 16, 32, 4, seed=7,
+                                              device="cpu")
+        tr = FELTrainer(scheme, 6, 6, data, per_slot_mlp_loss,
+                        sgd_momentum(0.05), params, seed=3, device=device,
+                        **kw)
+        runs[str(device)] = (tr.run(3), tr)
+    (logs_c, cpu), (logs_g, card) = runs["cpu"], runs[str(cuda_device)]
+    assert all(p.device.type == "cuda" for p in tree_leaves(card.params))
+    for lc, lg in zip(logs_c, logs_g):
+        assert tuple(getattr(lc, f) for f in FEL_HOST_FIELDS) == \
+            tuple(getattr(lg, f) for f in FEL_HOST_FIELDS)
+        np.testing.assert_allclose(lg.loss, lc.loss, rtol=1e-5)
+    for a, b in zip(tree_leaves(cpu.params), tree_leaves(card.params)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_lm_train_coded_step_on_card_matches_cpu(cuda_device):
+    """One coded step of ``launch.train.train`` at TINY (bf16 compute):
+    equal host outcomes, losses within bf16's unit roundoff, and the
+    attention kernels launched twice a layer forward (remat) and once
+    backward."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import TINY, train
+    from repro_torch.models.transformer import init_params
+
+    params = init_params(TINY, torch.Generator().manual_seed(0),
+                         device="cpu")
+    kw = dict(steps=1, batch=2, seq=32, coded=True, params=params,
+              log=lambda msg: None)
+    cpu = train(TINY, device="cpu", **kw)
+    before = (flash_attention.fwd_launches, flash_attention.bwd_launches)
+    card = train(TINY, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.fwd_launches - before[0],
+            flash_attention.bwd_launches - before[1]) == \
+        (2 * TINY.n_layers, TINY.n_layers)
+    for key in ("n_slots", "sim_time", "decode_ok", "n_stragglers"):
+        assert card[key] == cpu[key], key
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=2.0 ** -9)
+    for p in tree_leaves(card["params"]):
+        assert p.device.type == "cuda" and bool(torch.isfinite(p).all())

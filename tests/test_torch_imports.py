@@ -51,5 +51,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.recurrentgemma_2b",
                 "repro_torch.models.rglru",
                 "repro_torch.kernels.rglru_scan.ops",
-                "repro_torch.kernels.rglru_scan.ref"):
+                "repro_torch.kernels.rglru_scan.ref",
+                "repro_torch.core.fel", "repro_torch.core.coded_step",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.launch.train"):
         assert mod in got["imported"]
