@@ -82,7 +82,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
               of 2,048) and 2,560 tokens (a ring from prefill), in bf16 and
               float32, the model on the card against the CPU at REDUCED,
               and the REDUCED serve loop on the card and the CPU;
-11. times  -- each kernel, its plain version and one library call, timed
+11. fleet  -- the batched fleet engines (no kernel of the port): (a)
+              ``compare_schemes`` on every registry scenario, 4 schemes x
+              64 seeds x 3 epochs (``fleet_scale.py``'s FULL size), on
+              the card, every lane's outcomes equal to the same fleets on
+              the CPU and the ledgers within rtol 1e-5; (b) the oracle on
+              seeds 0 and 1 and the hybrid engine on all 64, bit-equal to
+              (a); (c) one epoch of a 1,000-lane megafleet whose first 64
+              lanes equal (a), with the host's waits for the card counted
+              by torch's sync debug mode; (d) ``grid_sweep.py``'s SMOKE
+              grid (64 cells) equal to per-cell runs, one chunk-runner
+              build per group at most; (e) a recorded fleet equal to the
+              unrecorded one, its series equal to the oracle's, its
+              Chrome trace valid JSON;
+12. times  -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
               the per-epoch phase split of the training paths and a
               profile of one prefill and its decode steps of each serve
@@ -1759,7 +1772,377 @@ def rg_serve_phase() -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 9. times
+# 11. fleet: the batched fleet engines and their telemetry
+# --------------------------------------------------------------------- #
+#: fleet_scale.py::FULL: 64 seeds x 3 epochs; MEGAFLEET_SMOKE: 1,000 lanes
+FLEET_SEEDS, FLEET_EPOCHS, MEGAFLEET_LANES = 64, 3, 1000
+#: grid_sweep.py::SMOKE: 4 scenarios x 4 payloads x 4 schemes, 1 seed and
+#: 1 epoch a cell (None keeps the scenario's payload)
+SWEEP_SCENARIOS = ("homogeneous", "bursty-stragglers", "heterogeneous-rates",
+                   "energy-harvesting-constrained")
+SWEEP_PAYLOADS = (None, 0.5, 1.5, 2.0)
+#: the ledgers of a co-simulated epoch, and their tolerance against the CPU
+FLEET_LEDGERS = ("bytes_offered", "bytes_admitted", "bytes_transmitted",
+                 "queue_residual", "pending_residual", "final_energy")
+FLEET_TOL = dict(rtol=1e-5, atol=1e-9)
+
+
+def _outcome(r) -> tuple:
+    """The discrete outcomes of one epoch (and its simulated times)."""
+    c = r.comm
+    return (r.decode_ok, r.stage2_triggered, r.n_stragglers, r.time,
+            r.compute_time, r.comm_time, c.n_slots, c.idle_slots,
+            c.decode_ok, c.decode_time, c.arrived.tobytes(),
+            r.weights.tobytes())
+
+
+def _exact(r) -> tuple:
+    """Every field of one epoch, floats as their bytes."""
+    c = r.comm
+    return _outcome(r) + (
+        r.useful_task_time, r.total_task_time, r.executed_tasks,
+        c.min_energy, c.max_overdraft,
+        *(getattr(c, f).tobytes() for f in FLEET_LEDGERS))
+
+
+def _close_to(tag, got, want) -> int:
+    """Raise unless the lanes' outcomes are equal and their ledgers within
+    FLEET_TOL; return how many lanes are equal to the last bit."""
+    import numpy as np
+    n_exact = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if _outcome(g) != _outcome(w):
+            raise AssertionError(f"{tag} lane {i}: outcomes differ")
+        for f in FLEET_LEDGERS:
+            np.testing.assert_allclose(getattr(g.comm, f),
+                                       getattr(w.comm, f), **FLEET_TOL,
+                                       err_msg=f"{tag} lane {i} {f}")
+        np.testing.assert_allclose(
+            [g.comm.min_energy, g.comm.max_overdraft],
+            [w.comm.min_energy, w.comm.max_overdraft], rtol=1e-5, atol=1e-6,
+            err_msg=f"{tag} lane {i}")
+        n_exact += _exact(g) == _exact(w)
+    return n_exact
+
+
+def _equal(tag, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if _exact(g) != _exact(w):
+            raise AssertionError(f"{tag} lane {i}: not bit-equal")
+
+
+class _kept_runs:
+    """Within the block, keep every :class:`FleetRun` that
+    ``Fleet.run`` returns (``compare_schemes`` returns summaries only)."""
+
+    def __enter__(self):
+        from repro_torch.sim.fleet import Fleet
+        self.runs, self._run = [], Fleet.run
+        runs, run = self.runs, self._run
+
+        def keep(fleet, *args, **kwargs):
+            runs.append(run(fleet, *args, **kwargs))
+            return runs[-1]
+        Fleet.run = keep
+        return self.runs
+
+    def __exit__(self, *exc):
+        from repro_torch.sim.fleet import Fleet
+        Fleet.run = self._run
+        return False
+
+
+def _sync_count(fn):
+    """``fn()`` under torch's CUDA sync debug mode: its result and the
+    messages of the synchronising calls it made (copies to the host,
+    blocking copies from pageable memory, ``.item()``), without the mode's
+    one-off notice that it is a prototype."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation"
+                 in str(w.message)]
+
+
+def _waits_per_chunk(mega, smi: str) -> dict:
+    """The host's waits for the card: one more epoch of ``mega`` (one
+    chunk) and a 64-lane saturated-uplink epoch cut into chunks of 32,
+    each after a first epoch that built the runner and pinned its host
+    buffer; waits = a·chunks + b solved from the two."""
+    from repro_torch.sim import scenario_spec
+    from repro_torch.sim.batched import BatchedFleet
+    from repro_torch.sim.spec import fleet_seeds
+
+    sat = BatchedFleet(scenario_spec("saturated-uplink"), "two-stage",
+                       fleet_seeds(FLEET_SEEDS, 0), chunk=32,
+                       device="cuda")
+    sat.run_epoch(0)
+    counts = []
+    for fleet, epoch in ((mega, 1), (sat, 1)):
+        before = fleet.chunk_counters["chunks"]
+        _, msgs = _sync_count(lambda: fleet.run_epoch(epoch))
+        counts.append((fleet.chunk_counters["chunks"] - before, len(msgs),
+                       sorted(set(m.split("\n")[0][:80] for m in msgs))))
+    (c1, w1, m1), (c2, w2, m2) = counts
+    a = (w2 - w1) / (c2 - c1) if c2 != c1 else float("nan")
+    out = {"a_per_chunk": a, "b_per_epoch": w1 - a * c1,
+           "runs": [(c1, w1), (c2, w2)]}
+    log(f"[fleet] host waits for the card (torch's sync debug mode): "
+        f"{w1} in an epoch of {c1} chunk(s), {w2} in one of {c2} -> "
+        f"{a:.2f} a chunk + {out['b_per_epoch']:.2f} an epoch; calls: "
+        f"{sorted(set(m1) | set(m2))} ({smi})")
+    return out
+
+
+def _fleet_profile(smi: str) -> dict:
+    """One epoch of a 64-lane ``fading-uplink`` two-stage fleet under
+    ``torch.profiler``: kernels a slot of the chunk loop, their device
+    time, and the share of the epoch in which the card ran no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import scenario_spec
+    from repro_torch.sim.batched import BatchedFleet
+    from repro_torch.sim.spec import fleet_seeds
+
+    fleet = BatchedFleet(scenario_spec("fading-uplink"), "two-stage",
+                         fleet_seeds(FLEET_SEEDS, 0), device="cuda")
+    fleet.run_epoch(0)                                  # builds the runner
+    torch.cuda.synchronize()
+    before = dict(fleet.chunk_counters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet.run_epoch(1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    slots = fleet.chunk_counters["slots"] - before["slots"]
+    loop_ms = 1e3 * (fleet.chunk_counters["seconds"] - before["seconds"])
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"[fleet] profile: {wall:.2f} ms host time; no device events "
+            f"recorded, so the idle share is not measured ({smi})")
+        return {"wall_ms": wall}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    out = {"wall_ms": wall, "loop_ms": loop_ms, "slots": slots,
+           "kernels": len(kernels), "kernels_per_slot": len(kernels) / slots,
+           "busy_ms": busy, "idle": max(0.0, 1 - busy / wall)}
+    log(f"[fleet] profile of one 64-lane fading-uplink epoch: {wall:.2f} ms "
+        f"(chunk loop {loop_ms:.2f} ms over {slots} slots, "
+        f"{loop_ms / slots:.3f} ms a slot under the profiler), "
+        f"{len(kernels)} kernels ({len(kernels) / slots:.1f} a slot), "
+        f"{busy:.2f} ms of kernels -> the card idle {out['idle']:.1%} "
+        f"({smi})")
+    return out
+
+
+def fleet_phase(smi: str) -> dict:
+    """The batched fleet engines on the card: (a) ``compare_schemes`` on
+    every registry scenario, 4 schemes x 64 seeds x 3 epochs, against the
+    same fleets on the CPU; (b) the oracle (seeds 0 and 1 of the fleet)
+    and the hybrid engine against (a); (c) a 1,000-lane megafleet whose
+    first 64 lanes must equal (a); (d) the grid sweep against per-cell
+    runs; (e) a recorded fleet against the unrecorded one and the
+    oracle's series.  Returns the phase's numbers."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.sim import (ExperimentSpec, Fleet, available_scenarios,
+                                 build_cluster, compare_schemes, plan_groups,
+                                 reset_scan_compile_cache, run_experiment,
+                                 scan_trace_count, scenario_spec, sweep)
+    from repro_torch.sim.batched import BatchedFleet
+    from repro_torch.sim.spec import fleet_seeds
+    from repro_torch.telemetry import FleetRecorder, write_chrome_trace
+
+    t_phase = time.perf_counter()
+    seeds = fleet_seeds(FLEET_SEEDS, 0)
+    out = {"a": {}, "oracle_ms_slot": None}
+    card = {}
+    # (a) compare_schemes on the card; its fleets' lanes (kept by a
+    # wrapper around Fleet.run) against the same fleets on the CPU
+    a_s = a_cpu_s = 0.0
+    n_exact = n_lanes = 0
+    for name in sorted(available_scenarios()):
+        spec = scenario_spec(name)
+        torch.cuda.synchronize()
+        with _kept_runs() as kept:
+            t0 = time.perf_counter()
+            summ = compare_schemes(spec, n_seeds=FLEET_SEEDS,
+                                   n_epochs=FLEET_EPOCHS, engine="batched",
+                                   device="cuda")
+            dt = time.perf_counter() - t0
+        a_s += dt
+        for scheme, run in zip(SCHEMES, kept):
+            if (run.scheme, run.seeds) != (scheme, seeds) or \
+                    run.summary() != summ[scheme]:
+                raise AssertionError(f"{name}/{scheme}: not the run "
+                                     f"compare_schemes summarised")
+            t1 = time.perf_counter()
+            cpu = Fleet(spec).run(scheme, seeds, n_epochs=FLEET_EPOCHS,
+                                  engine="batched", device="cpu")
+            a_cpu_s += time.perf_counter() - t1
+            for e in range(FLEET_EPOCHS):
+                n_exact += _close_to(f"(a) {name}/{scheme} epoch {e}",
+                                     run.results[e], cpu.results[e])
+                n_lanes += FLEET_SEEDS
+            card[(name, scheme)] = run.results
+            log(f"[fleet] {summ[scheme].row()}")
+        se = len(SCHEMES) * FLEET_SEEDS * FLEET_EPOCHS
+        out["a"][name] = {"seconds": dt, "seed_epochs_per_s": se / dt}
+        log(f"[fleet] (a) {name}: compare_schemes {dt:.2f} s on the card, "
+            f"{se / dt:.0f} seed-epochs/s ({smi})")
+    out["a_seconds"], out["a_cpu_seconds"] = a_s, a_cpu_s
+    total_se = len(out["a"]) * len(SCHEMES) * FLEET_SEEDS * FLEET_EPOCHS
+    log(f"[fleet] (a) 7 scenarios x 4 schemes x {FLEET_SEEDS} seeds x "
+        f"{FLEET_EPOCHS} epochs: {a_s:.2f} s on the card "
+        f"({total_se / a_s:.0f} seed-epochs/s), {a_cpu_s:.2f} s on the CPU; "
+        f"outcomes equal, ledgers within rtol 1e-5, {n_exact} of {n_lanes} "
+        f"lane-epochs bit-equal to the CPU's ({smi})")
+    out["a_bit_equal"] = (n_exact, n_lanes)
+
+    # (b) the oracle on the card (seeds 0 and 1 of the fleet) and the
+    # hybrid engine over the 64 seeds, both exactly (a)
+    oracle_s, oracle_slots = 0.0, 0
+    hybrid_s = 0.0
+    for (name, scheme), results in card.items():
+        spec = scenario_spec(name)
+        for i in (0, 1):
+            cl = build_cluster(spec, scheme, seeds[i], device="cuda")
+            for e in range(FLEET_EPOCHS):
+                t0 = time.perf_counter()
+                r = cl.run_epoch(e)
+                oracle_s += time.perf_counter() - t0
+                oracle_slots += r.comm.n_slots
+                _equal(f"(b) oracle {name}/{scheme} seed {seeds[i]} "
+                       f"epoch {e}", [r], [results[e][i]])
+        t0 = time.perf_counter()
+        hyb = Fleet(spec).run(scheme, seeds, n_epochs=FLEET_EPOCHS,
+                              engine="hybrid", device="cuda")
+        hybrid_s += time.perf_counter() - t0
+        for e in range(FLEET_EPOCHS):
+            _equal(f"(b) hybrid {name}/{scheme} epoch {e}",
+                   hyb.results[e], results[e])
+    out["oracle_ms_slot"] = 1e3 * oracle_s / oracle_slots
+    out["hybrid_seconds"] = hybrid_s
+    log(f"[fleet] (b) oracle = lanes 0, 1 and hybrid = batched, bit for "
+        f"bit, on all 28 fleets; the oracle {out['oracle_ms_slot']:.3f} ms "
+        f"a slot over {oracle_slots} slots (epoch wall time / slots, "
+        f"compute phase included); hybrid {hybrid_s:.2f} s ({smi})")
+
+    # (c) the megafleet: one epoch of homogeneous two-stage over 1,000
+    # lanes; lanes 0-63 must be (a)'s epoch 0
+    spec = scenario_spec("homogeneous")
+    t0 = time.perf_counter()
+    mega = BatchedFleet(spec, "two-stage", fleet_seeds(MEGAFLEET_LANES, 0),
+                        device="cuda")
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mega.run_epoch(0)
+    torch.cuda.synchronize()
+    mega_s = time.perf_counter() - t0
+    _equal("(c) megafleet lanes 0-63", res[:FLEET_SEEDS],
+           card[("homogeneous", "two-stage")][0])
+    cc = dict(mega.chunk_counters)
+    out["mega"] = {"lanes": MEGAFLEET_LANES, "seconds": mega_s,
+                   "build_s": build_s,
+                   "seeds_per_s": MEGAFLEET_LANES / mega_s,
+                   "chunks": cc["chunks"], "chunk": mega.chunk,
+                   "ms_chunk": 1e3 * cc["seconds"] / cc["chunks"],
+                   "max_slots": max(r.comm.n_slots for r in res)}
+    m = out["mega"]
+    log(f"[fleet] (c) megafleet {MEGAFLEET_LANES} lanes, one epoch: "
+        f"{mega_s:.2f} s ({m['seeds_per_s']:.0f} seeds/s; fleet built in "
+        f"{build_s:.2f} s); {m['chunks']} chunk(s) of {m['chunk']} slots, "
+        f"{m['ms_chunk']:.1f} ms a chunk; lanes 0-63 equal (a) ({smi})")
+    out["waits"] = _waits_per_chunk(mega, smi)
+    out["profile"] = _fleet_profile(smi)
+
+    # (d) the sweep: grid_sweep.py's SMOKE grid, rows equal per-cell
+    # run_experiment, one runner build per group at most
+    grid = []
+    for name in SWEEP_SCENARIOS:
+        base = scenario_spec(name)
+        for gb in SWEEP_PAYLOADS:
+            sc = (base if gb is None else base.with_overrides(
+                name=f"{name}-gb{gb}", grad_bytes=gb))
+            grid.extend(ExperimentSpec(scenario=sc, scheme=scheme,
+                                       n_seeds=1, n_epochs=1)
+                        for scheme in SCHEMES)
+    t0 = time.perf_counter()
+    per_cell = [run_experiment(c, device="cuda") for c in grid]
+    cell_s = time.perf_counter() - t0
+    reset_scan_compile_cache()
+    before = scan_trace_count()
+    t0 = time.perf_counter()
+    swept = sweep(grid, device="cuda")
+    sweep_s = time.perf_counter() - t0
+    builds = scan_trace_count() - before
+    n_groups = len(plan_groups(grid))
+    if swept != per_cell:
+        raise AssertionError("(d) sweep rows differ from per-cell runs")
+    if builds > n_groups:
+        raise AssertionError(f"(d) {builds} runner builds > {n_groups} "
+                             f"groups")
+    out["sweep"] = {"cells": len(grid), "groups": n_groups,
+                    "builds": builds, "seconds": sweep_s,
+                    "per_cell_seconds": cell_s}
+    log(f"[fleet] (d) sweep of {len(grid)} cells in {n_groups} groups: "
+        f"{sweep_s:.2f} s, {builds} runner builds; per-cell runs "
+        f"{cell_s:.2f} s; rows equal ({smi})")
+
+    # (e) telemetry: a recorded fading-uplink fleet equals the unrecorded
+    # one, its series equal the oracle's, and its trace is JSON
+    spec = scenario_spec("fading-uplink")
+    rec = FleetRecorder(scenario="fading-uplink", scheme="two-stage",
+                        engine="batched")
+    t0 = time.perf_counter()
+    recorded = Fleet(spec).run("two-stage", seeds, n_epochs=1,
+                               telemetry=rec, device="cuda")
+    rec_s = time.perf_counter() - t0
+    _equal("(e) recorded fleet", recorded.results[0],
+           card[("fading-uplink", "two-stage")][0])
+    rec_o = FleetRecorder()
+    for i in (0, 1):
+        cl = build_cluster(spec, "two-stage", seeds[i], device="cuda")
+        cl.telemetry_lane = i
+        cl.telemetry = rec_o
+        cl.run_epoch(0)
+    for i in (0, 1):
+        sb, so = rec.comm_series(i, 0), rec_o.comm_series(i, 0)
+        for f in sb:
+            if not np.array_equal(sb[f], so[f]):
+                raise AssertionError(f"(e) series {f} of lane {i} differs "
+                                     f"from the oracle's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_chrome_trace(rec, str(Path(tmp) / "fleet_trace.json"))
+        with open(path) as f:
+            doc = _json.load(f)
+    n_ev = len(doc["traceEvents"])
+    out["telemetry"] = {"seconds": rec_s, "trace_events": n_ev}
+    log(f"[fleet] (e) recorded fleet {rec_s:.2f} s, equal to the "
+        f"unrecorded one; series of lanes 0, 1 equal the oracle's; "
+        f"Chrome trace {n_ev} events ({smi})")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[fleet] phase passed in {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 12. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -2384,6 +2767,7 @@ def main() -> int:
     lmt = lm_train_phase()
     served = serve_phase()
     rg_out = rg_serve_phase()
+    fleet_phase(smi)
     kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
                           rg_errs, fel, lmt)
     import torch

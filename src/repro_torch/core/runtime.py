@@ -1,8 +1,8 @@
 """Two-stage epoch runtime: deadlines, completion simulation, decode weights.
 
-A numpy copy of ``repro.core.runtime`` without its telemetry hooks: the
-port keeps its own so that it never imports the JAX package.  Host
-arithmetic, and every draw from the RNG stream, is bit-identical to it.
+A numpy copy of ``repro.core.runtime``: the port keeps its own so that it
+never imports the JAX package.  Host arithmetic, and every draw from the
+RNG stream, is bit-identical to it.
 
 This is the host-side control loop of TSDCFL.  Completion times come from
 a ``CompletionTimeModel`` (shifted-exponential per-worker service times +
@@ -23,6 +23,7 @@ The epoch is split into two explicit halves:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import TYPE_CHECKING, Optional
 
@@ -39,7 +40,7 @@ from repro_torch.core.coded_step import (SlotPlan, build_slot_plan,
 
 __all__ = ["CompletionDraws", "CompletionTimeModel", "ComputePhase",
            "EpochResult", "TwoStageRuntime", "build_epoch_backend",
-           "sample_batched", "simulate_epoch_single_stage",
+           "decode_requirements_batched", "sample_batched", "simulate_epoch_single_stage",
            "single_stage_accounting", "stage1_accounting",
            "stage1_deadline", "twostage_slot_bound"]
 
@@ -311,6 +312,20 @@ class TwoStageRuntime:
         self.engine = engine
         self._rng = (engine.rng if engine is not None
                      else np.random.default_rng(seed + 1))
+        #: Optional telemetry recorder (duck-typed; see
+        #: ``repro_torch.telemetry.recorder``).  When set and span
+        #: recording is enabled, the compute phase wraps its stage-1 and
+        #: stage-2 halves in wall-clock spans; ``None`` (the default)
+        #: keeps the phase span-free — the zero-cost off switch.
+        self.telemetry = None
+        #: This runtime's lane in the recorded fleet.
+        self.telemetry_lane = 0
+
+    def _span(self, name: str, **meta):
+        rec = self.telemetry
+        if rec is not None and rec.wants_spans:
+            return rec.span(name, lane=self.telemetry_lane, **meta)
+        return contextlib.nullcontext()
 
     # ------------------------------------------------------------------ #
     def compute_phase(self, epoch: int) -> ComputePhase:
@@ -322,25 +337,27 @@ class TwoStageRuntime:
         compute engine, so the draw order is the reference's.
         """
         M = self.M
-        speeds = self.predictor.speeds()
-        st1 = self.planner.plan_stage1(epoch, speeds)
-        tasks1 = st1.scheme.copies_per_worker             # (M1,)
-        t1 = self.time_model.sample(st1.workers, tasks1, self._rng)
+        with self._span("stage1", epoch=epoch):
+            speeds = self.predictor.speeds()
+            st1 = self.planner.plan_stage1(epoch, speeds)
+            tasks1 = st1.scheme.copies_per_worker             # (M1,)
+            t1 = self.time_model.sample(st1.workers, tasks1, self._rng)
 
-        # per-worker-aware deadline: quantile (over selected workers)
-        # of the predicted finish time of each worker's own share
-        per_task_q = self.predictor.time_quantile(0.9)[st1.workers]
-        T_comp = float(stage1_deadline(per_task_q, tasks1,
-                                       self.deadline_quantile))
-        finished = t1 <= T_comp
+            # per-worker-aware deadline: quantile (over selected workers)
+            # of the predicted finish time of each worker's own share
+            per_task_q = self.predictor.time_quantile(0.9)[st1.workers]
+            T_comp = float(stage1_deadline(per_task_q, tasks1,
+                                           self.deadline_quantile))
+            finished = t1 <= T_comp
 
-        # predictor update with whatever we observed by the deadline
-        obs = np.isfinite(t1)
-        self.predictor.update_times(
-            st1.workers[obs & finished],
-            (t1 / np.maximum(tasks1, 1))[obs & finished])
+            # predictor update with whatever we observed by the deadline
+            obs = np.isfinite(t1)
+            self.predictor.update_times(
+                st1.workers[obs & finished],
+                (t1 / np.maximum(tasks1, 1))[obs & finished])
 
-        # RNG-free stage-1 accounting
+        # RNG-free stage-1 accounting (ahead of the stage-2 span, so the
+        # span covers planning and sampling without reordering draws)
         stage1_time, stage1_total, stage1_executed = (
             float(x) for x in stage1_accounting(t1, tasks1, finished,
                                                 T_comp))
@@ -348,16 +365,17 @@ class TwoStageRuntime:
         ready = np.full(M, np.inf)
         ready[st1.workers[finished]] = t1[finished]
 
-        s_hat = self.predictor.predict_s(
-            n_active=M - int(finished.sum()), s_min=1)
-        st2 = self.planner.plan_stage2(st1, finished, s_hat, speeds)
-        t2 = tasks2 = None
-        if st2.triggered:
-            tasks2 = st2.scheme.copies_per_worker
-            t2 = self.time_model.sample(st2.active_workers, tasks2,
-                                        self._rng)
-            ready[st2.active_workers] = np.where(
-                np.isfinite(t2), stage1_time + t2, np.inf)
+        with self._span("stage2", epoch=epoch):
+            s_hat = self.predictor.predict_s(
+                n_active=M - int(finished.sum()), s_min=1)
+            st2 = self.planner.plan_stage2(st1, finished, s_hat, speeds)
+            t2 = tasks2 = None
+            if st2.triggered:
+                tasks2 = st2.scheme.copies_per_worker
+                t2 = self.time_model.sample(st2.active_workers, tasks2,
+                                            self._rng)
+                ready[st2.active_workers] = np.where(
+                    np.isfinite(t2), stage1_time + t2, np.inf)
         return ComputePhase(
             epoch=epoch, st1=st1, st2=st2, t1=t1, tasks1=tasks1,
             finished=finished, T_comp=T_comp, stage1_time=stage1_time,
@@ -518,6 +536,37 @@ class TwoStageRuntime:
             sch = ph.st2.scheme
             return must, ph.st2.active_workers, sch.M - sch.s
         return must, np.zeros(0, int), 0
+
+
+# --------------------------------------------------------------------- #
+def decode_requirements_batched(phases: "list[ComputePhase]") -> list:
+    """The fleet's decode-arrival requirements in one vectorized pass.
+
+    Returns one ``(must_arrive, stage2_workers, n_needed2)`` triple per
+    phase, identical to per-seed :meth:`TwoStageRuntime.
+    decode_requirements` calls: the stage-1 finisher extraction
+    (``st1.workers[finished]``) runs as a single stacked ``nonzero`` +
+    split per ``M1`` shape group instead of S per-seed index calls; the
+    stage-2 entries are O(1) attribute reads.
+    """
+    reqs: list = [None] * len(phases)
+    groups: dict = {}
+    for i, ph in enumerate(phases):
+        groups.setdefault(len(ph.finished), []).append(i)
+    for idxs in groups.values():
+        workers = np.stack([phases[i].st1.workers for i in idxs])
+        fin = np.stack([phases[i].finished for i in idxs])
+        rows, cols = np.nonzero(fin)
+        musts = np.split(workers[rows, cols],
+                         np.cumsum(fin.sum(axis=1))[:-1])
+        for must, i in zip(musts, idxs):
+            ph = phases[i]
+            if ph.triggered:
+                sch = ph.st2.scheme
+                reqs[i] = (must, ph.st2.active_workers, sch.M - sch.s)
+            else:
+                reqs[i] = (must, np.zeros(0, int), 0)
+    return reqs
 
 
 # --------------------------------------------------------------------- #

@@ -8,7 +8,8 @@ compiled on its own into a shared library for Hopper (``sm_90a``)::
 
 The library's name carries a hash of the source and the flags, so an edited
 kernel is rebuilt at its first use and an unchanged one is loaded from
-``BUILD_DIR``.  ptxas's report (registers, shared memory, spills) is kept
+``BUILD_DIR``.  Each build bumps the ``kernel_build:<name>`` counter of
+:mod:`repro_torch.telemetry.compilation`.  ptxas's report (registers, shared memory, spills) is kept
 beside each library as ``<name>-<hash>.log``.  Nothing is built when a
 module is imported: the first launch builds, or a caller builds several
 sources at once, one ``nvcc`` process each, with :func:`compile_libraries`.
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import List, Sequence
+
+from repro_torch.telemetry.compilation import note_compile
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_libraries", "library_path",
            "load_library", "nvcc_path"]
@@ -77,6 +80,7 @@ def compile_libraries(sources: Sequence[Path]) -> List[Path]:
             failed.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)        # atomic: a reader never sees half a file
+        note_compile(f"kernel_build:{Path(src).stem}")
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return outs

@@ -1,13 +1,22 @@
 """Per-slot uplink rate models for the co-simulator.
 
-The host half of ``repro.sim.channel`` (numpy only), copied so that the
-port never imports the JAX package.  A channel model produces the (M,)
-vector of per-worker uplink capacities (bytes per unit time) for each
-slot, through a pure core (``init_state_np`` / ``step_np``) that the
-event-driven ``EdgeCluster`` steps on the host.  The reference's batched
-``lax.scan`` form (``rates_for_slots``, ``tape_arrays``,
-``step_batched``) belongs to its batched fleet engines and is not part of
-this port yet.
+The torch port of ``repro.sim.channel``, kept here so that the port never
+imports the JAX package.  A channel model produces the (M,) vector of
+per-worker uplink capacities (bytes per unit time) for each slot, in two
+forms that share one source of truth:
+
+  host core
+      ``init_state_np`` / ``step_np`` — pure per-slot stepping for the
+      event-driven ``EdgeCluster``'s host loop (numpy float64).
+
+  batched core
+      ``rates_for_slots`` — whole rate blocks of the stateless models;
+      ``batched_params`` / ``tape_arrays`` + ``step_batched`` — the
+      Gilbert–Elliott chain stepped over ``(S, M)`` lanes on the device by
+      the batched fleet engine (``repro_torch.sim.batched``).  The flips
+      are resolved against the transition probabilities in float64 on the
+      host (``tape_arrays``), so the device only selects booleans and the
+      chain is bit-identical to the host core's.
 
 All comm-phase randomness is drawn through :class:`CommTape` in fixed
 blocks of :data:`TAPE_BLOCK` slots, so RNG consumption depends only on
@@ -19,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 __all__ = ["ChannelModel", "StaticChannel", "GilbertElliottChannel",
            "TraceChannel", "CommTape", "TAPE_BLOCK"]
@@ -36,7 +46,8 @@ class ChannelModel:
     """
 
     M: int
-    #: True when per-slot rates depend on evolving *random* state.
+    #: True when per-slot rates depend on evolving *random* state (the
+    #: batched engine then carries the state through its chunk loop).
     stateful = False
 
     def physics_key(self) -> tuple:
@@ -74,6 +85,31 @@ class ChannelModel:
         """Pure step: ``(rates_f64, next_state)`` for slot ``slot``."""
         raise NotImplementedError
 
+    # -- pure batched core (batched fleet engine) ----------------------- #
+    def rates_for_slots(self, slots: np.ndarray) -> np.ndarray:
+        """(len(slots), M) rate rows — stateless models only."""
+        raise NotImplementedError(f"{type(self).__name__} is stateful; "
+                                  "carry its state through the scan instead")
+
+    def batched_params(self) -> dict:
+        """Host float32 parameter rows handed to ``step_batched`` (the
+        fleet stacks them over lanes and copies them to the device once)."""
+        return {}
+
+    def tape_arrays(self, u_block: np.ndarray) -> dict:
+        """Preprocess a (n, M) uniform block into per-slot boolean rows.
+
+        Thresholding against transition probabilities happens here in
+        float64, so the device step only selects and is exact.
+        """
+        return {}
+
+    @staticmethod
+    def step_batched(params: dict, state, x_row: dict, slot):
+        """Pure torch step: ``(rates_f32, next_state)`` — stateful
+        models."""
+        raise NotImplementedError
+
     # -- legacy stateful API (thin wrappers over the pure core) --------- #
     def reset(self, rng: np.random.Generator) -> None:
         """Re-initialize internal state at the start of an epoch."""
@@ -104,6 +140,8 @@ class StaticChannel(ChannelModel):
     def step_np(self, state, u_row, slot):
         return self._rates.copy(), state
 
+    def rates_for_slots(self, slots: np.ndarray) -> np.ndarray:
+        return np.broadcast_to(self._rates, (len(slots), self.M)).copy()
 
 
 class GilbertElliottChannel(ChannelModel):
@@ -156,6 +194,21 @@ class GilbertElliottChannel(ChannelModel):
         new_good = np.where(good, u_row >= self.p_gb, u_row < self.p_bg)
         return r, new_good
 
+    def batched_params(self) -> dict:
+        return {"rate_good": self.rate_good.astype(np.float32),
+                "rate_bad": self.rate_bad.astype(np.float32)}
+
+    def tape_arrays(self, u_block: np.ndarray) -> dict:
+        # float64 comparisons on the host: the device step then only
+        # selects booleans, so the chain is bit-identical to step_np's.
+        return {"stay_good": u_block >= self.p_gb,
+                "go_good": u_block < self.p_bg}
+
+    @staticmethod
+    def step_batched(params, good, x_row, slot):
+        r = torch.where(good, params["rate_good"], params["rate_bad"])
+        new_good = torch.where(good, x_row["stay_good"], x_row["go_good"])
+        return r, new_good
 
 
 class TraceChannel(ChannelModel):
@@ -182,6 +235,9 @@ class TraceChannel(ChannelModel):
 
     def step_np(self, state, u_row, slot):
         return self.trace[int(self._index(slot))].copy(), state
+
+    def rates_for_slots(self, slots: np.ndarray) -> np.ndarray:
+        return self.trace[self._index(slots)].copy()
 
 
 class CommTape:
@@ -222,7 +278,7 @@ class CommTape:
                 self._lo, self._hi, (self.block, self.channel.M)))
             self.n_drawn += self.block
 
-    # row access ------------------------------------------------------- #
+    # row access (oracle) ---------------------------------------------- #
     def channel_u(self, k: int) -> Optional[np.ndarray]:
         if not self._u:
             return None
@@ -230,3 +286,19 @@ class CommTape:
 
     def harvest(self, k: int) -> np.ndarray:
         return self._h[k // self.block][k % self.block]
+
+    # chunk access (batched engine; chunks divide the tape block) ------ #
+    def _rows(self, store: list, k0: int, n: int) -> np.ndarray:
+        b, off = divmod(k0, self.block)
+        assert off + n <= self.block, (
+            f"chunk [{k0}, {k0 + n}) straddles tape block {b} — scan "
+            f"chunks must stay block-aligned so RNG draws are unchanged")
+        return store[b][off:off + n]
+
+    def channel_rows(self, k0: int, n: int) -> Optional[np.ndarray]:
+        """Channel uniforms for slots ``[k0, k0+n)`` (within one block)."""
+        return self._rows(self._u, k0, n) if self._u else None
+
+    def harvest_rows(self, k0: int, n: int) -> np.ndarray:
+        """Harvest draws for slots ``[k0, k0+n)`` (within one block)."""
+        return self._rows(self._h, k0, n)

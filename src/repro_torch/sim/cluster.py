@@ -28,10 +28,15 @@ phases the paper analyses separately:
 The heap-based :class:`~repro_torch.sim.events.EventEngine` merges
 continuous compute-completion events into the slotted comm timeline and
 owns the one RNG stream behind completion sampling, fading and harvest.
+All comm-phase randomness is drawn through a
+:class:`~repro_torch.sim.channel.CommTape` in fixed blocks, so the
+batched fleet engine (``repro_torch.sim.batched``) replays an epoch bit
+for bit from the same seed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,11 +50,29 @@ from repro_torch.core.runtime import (EpochResult, build_epoch_backend,
                                       single_stage_accounting)
 from repro_torch.sim.channel import ChannelModel, CommTape, StaticChannel
 from repro_torch.sim.events import COMPUTE_DONE, SLOT_TICK, EventEngine
+from repro_torch.telemetry.recorder import FleetRecorder, phase_span
 
 __all__ = ["CommJob", "CommParams", "CommStats", "EdgeCluster", "GateSpec",
            "SCHEMES", "arrived_mask", "stuck_tolerance"]
 
 SCHEMES = ("two-stage", "cyclic", "fractional", "uncoded")
+
+
+@functools.lru_cache(maxsize=256)
+def _shared_consts(M, slot_T, tx_power, delta, xi, f_max, F, E_cap, V,
+                   n_subchannels, device):
+    """``(SystemParams, L, zeros)`` per distinct uplink physics and device.
+
+    Every cluster of a 64-seed fleet shares identical CommParams; caching
+    the immutable float32 tensors turns 64 × 11 tiny device allocations
+    into one.  Nothing writes to them (the scheduler returns new tensors).
+    """
+    dev = torch.device(device)
+    return (make_system_params(M, T=slot_T, p=tx_power, delta=delta, xi=xi,
+                               f_max=f_max, F=F, E_cap=E_cap, V=V,
+                               device=dev),
+            torch.tensor(n_subchannels, dtype=torch.float32, device=dev),
+            torch.zeros((M,), dtype=torch.float32, device=dev))
 
 #: Arrival tolerance: a worker's payload counts as arrived once
 #: ``delivered >= owed·(1 − ARRIVAL_RTOL) − ARRIVAL_ATOL``.
@@ -169,6 +192,8 @@ class EdgeCluster:
             raise ValueError(f"channel has {self.channel.M} workers, "
                              f"cluster has {M}")
         self.engine = EventEngine(seed)
+        self._telemetry: Optional[FleetRecorder] = None
+        self._telemetry_lane = 0
         rates = np.asarray(rates if rates is not None else np.ones(M),
                            np.float64)
         self.rates = rates
@@ -185,22 +210,48 @@ class EdgeCluster:
         cp = self.comm
         self.grad_bytes = np.broadcast_to(
             np.asarray(cp.grad_bytes, np.float64), (M,)).copy()
-        self.sys_params = make_system_params(
-            M, T=cp.slot_T, p=cp.tx_power, delta=cp.delta, xi=cp.xi,
-            f_max=cp.f_max, F=cp.F, E_cap=cp.E_cap, V=cp.V,
-            device=self.device)
-        self._L = torch.tensor(cp.n_subchannels, dtype=torch.float32,
-                               device=self.device)
-        self._zeros = torch.zeros((M,), dtype=torch.float32,
-                                  device=self.device)
+        self.sys_params, self._L, self._zeros = _shared_consts(
+            M, float(cp.slot_T), float(cp.tx_power), float(cp.delta),
+            float(cp.xi), float(cp.f_max), float(cp.F), float(cp.E_cap),
+            float(cp.V), float(cp.n_subchannels), str(self.device))
+
+    # -- telemetry plumbing ---------------------------------------------- #
+    @property
+    def telemetry(self) -> Optional[FleetRecorder]:
+        """Recorder observing this cluster (``None`` ⟹ telemetry off —
+        the zero-cost default).  Propagates to the two-stage runtime so
+        its stage-1/stage-2 spans land in the same recorder."""
+        return self._telemetry
+
+    @telemetry.setter
+    def telemetry(self, rec: Optional[FleetRecorder]) -> None:
+        self._telemetry = rec
+        if self.runtime is not None:
+            self.runtime.telemetry = rec
+            self.runtime.telemetry_lane = self._telemetry_lane
+
+    @property
+    def telemetry_lane(self) -> int:
+        """This cluster's lane index inside the recorded fleet."""
+        return self._telemetry_lane
+
+    @telemetry_lane.setter
+    def telemetry_lane(self, lane: int) -> None:
+        self._telemetry_lane = int(lane)
+        if self.runtime is not None:
+            self.runtime.telemetry_lane = int(lane)
 
     # ------------------------------------------------------------------ #
     def comm_job(self, epoch: int) -> CommJob:
         """Sample the compute phase and package the comm-phase inputs.
 
         Consumes this epoch's compute-phase randomness; the returned job
-        must then be driven through exactly one comm phase so the
-        per-seed RNG stream stays aligned with the reference's.
+        must then be driven through exactly one comm phase (event-driven
+        or batched) so the per-seed RNG stream stays aligned with the
+        reference's.  The batched compute engine
+        (``repro_torch.sim.batched_compute``) samples the phase for a
+        whole fleet at once and hands each seed's outcome to the same
+        :meth:`job_from_phase`/:meth:`job_from_static` methods.
         """
         if self.scheme == "two-stage":
             return self.job_from_phase(self.runtime.compute_phase(epoch))
@@ -209,9 +260,17 @@ class EdgeCluster:
             self.static_scheme.copies_per_worker)
         return self.job_from_static(t)
 
-    def job_from_phase(self, ph) -> CommJob:
-        """Comm job for a sampled two-stage :class:`ComputePhase`."""
-        must, w2, need2 = self.runtime.decode_requirements(ph)
+    def job_from_phase(self, ph, requirements=None) -> CommJob:
+        """Comm job for a sampled two-stage :class:`ComputePhase`.
+
+        ``requirements`` optionally supplies this phase's precomputed
+        ``(must_arrive, stage2_workers, n_needed2)`` triple — the batched
+        engine computes the whole fleet's triples in one stacked pass
+        (:func:`~repro_torch.core.runtime.decode_requirements_batched`),
+        so gate and assembly stay defined here for every engine.
+        """
+        must, w2, need2 = (self.runtime.decode_requirements(ph)
+                           if requirements is None else requirements)
 
         def decodable(arrived: np.ndarray) -> bool:
             if len(must) == 0 and need2 == 0:
@@ -277,9 +336,17 @@ class EdgeCluster:
     # ------------------------------------------------------------------ #
     def run_epoch(self, epoch: int) -> EpochResult:
         """One co-simulated epoch: compute → scheduled uplink → decode."""
-        job = self.comm_job(epoch)
-        stats = self._run_comm(job.ready_time, job.is_decodable)
-        return job.assemble(stats)
+        rec, lane = self._telemetry, self._telemetry_lane
+        with phase_span(rec, "compute_phase", epoch=epoch, lane=lane):
+            job = self.comm_job(epoch)
+        with phase_span(rec, "comm", epoch=epoch, lane=lane):
+            stats = self._run_comm(job.ready_time, job.is_decodable,
+                                   epoch=epoch)
+        with phase_span(rec, "decode", epoch=epoch, lane=lane):
+            result = job.assemble(stats)
+        if rec:
+            rec.record_epoch(lane, epoch, result)
+        return result
 
     # ------------------------------------------------------------------ #
     def _static_result(self, scheme: CodingScheme, t: np.ndarray,
@@ -313,7 +380,8 @@ class EdgeCluster:
 
     # ------------------------------------------------------------------ #
     def _run_comm(self, ready_time: np.ndarray,
-                  is_decodable: Callable[[np.ndarray], bool]) -> CommStats:
+                  is_decodable: Callable[[np.ndarray], bool],
+                  *, epoch: int = 0) -> CommStats:
         """Drain gradient payloads through the Lyapunov scheduler slot by
         slot until the decodable set has arrived (or progress is provably
         impossible / the slot cap fires).
@@ -321,10 +389,17 @@ class EdgeCluster:
         Per slot: one host→device copy of the observation rows (pending
         bytes, rates, harvest — float32, as the reference's scheduler
         inputs), the scheduler on ``device``, and one device→host copy of
-        the decisions and post-step queues into the float64 ledgers.
+        the decisions and post-step queues into the float64 ledgers.  With
+        a recorder that wants series, the copy also brings ``H`` back and
+        each slot's float32 rows are kept (the batched engine slices the
+        same values out of its chunk outputs).
         """
         M, cp, eng = self.M, self.comm, self.engine
         dev = self.device
+        rec = self._telemetry
+        series = rec.wants_series if rec is not None else False
+        kept = {f: [] for f in ("Q", "H", "E", "admitted", "transmitted",
+                                "pending")} if series else None
         T = cp.slot_T
         eng.clear()
         eng.reset_clock()
@@ -376,9 +451,14 @@ class EdgeCluster:
             obs = Observation(D=rows[0], r=rows[1], E_H=rows[2], L=self._L,
                               new_cycles=self._zeros)
             state, dec = schedule_slot(state, self.sys_params, obs)
-            back = torch.stack([dec.d, dec.c, dec.e_up, dec.e_com, state.Q,
-                                state.E]).cpu().numpy()
-            d32, c32, e_up, e_com, Q_host, E_after = back
+            if series:
+                back = torch.stack([dec.d, dec.c, dec.e_up, dec.e_com,
+                                    state.Q, state.E, state.H]).cpu().numpy()
+                d32, c32, e_up, e_com, Q_host, E_after, H_host = back
+            else:
+                back = torch.stack([dec.d, dec.c, dec.e_up, dec.e_com,
+                                    state.Q, state.E]).cpu().numpy()
+                d32, c32, e_up, e_com, Q_host, E_after = back
             d = d32.astype(np.float64)
             c = c32.astype(np.float64)
             spend = e_up.astype(np.float64) + e_com.astype(np.float64)
@@ -393,6 +473,15 @@ class EdgeCluster:
             n_slots = k + 1
             if float(d.sum()) <= 0 and float(c.sum()) <= 0:
                 idle_slots += 1
+            if series:
+                # post-step state + this slot's decisions, in the float32
+                # the batched engine stacks — the parity contract
+                kept["Q"].append(Q_host)
+                kept["H"].append(H_host)
+                kept["E"].append(E_after)
+                kept["admitted"].append(d32)
+                kept["transmitted"].append(c32)
+                kept["pending"].append(pending.copy())
 
             arrived = arrived_mask(owed, delivered)
             if is_decodable(arrived):
@@ -414,6 +503,11 @@ class EdgeCluster:
             eng.schedule((k + 1) * T, SLOT_TICK, k + 1)
 
         eng.clear()                              # drop unneeded computes
+        if series:
+            rec.record_comm_series(
+                self._telemetry_lane, epoch, n_slots=n_slots,
+                **{f: (np.stack(v) if v else np.zeros((0, M), np.float32))
+                   for f, v in kept.items()})
         return CommStats(
             n_slots=n_slots, decode_time=decode_time, decode_ok=decode_ok,
             arrived=arrived, bytes_offered=owed.copy(),

@@ -46,6 +46,7 @@ from repro_torch.kernels.coded_reduce import coded_reduce
 from repro_torch.models import transformer
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.sim.spec import ScenarioSpec, build_cluster
+from repro_torch.telemetry.recorder import FleetRecorder, phase_span
 from repro_torch.train.partition import (DEFAULT_BYTES_PER_UNIT,
                                          GradPartition)
 
@@ -110,6 +111,13 @@ class CodedTrainer:
     ``phase_timer(name, epoch)``, when given, is a context-manager factory
     wrapped around each phase of :meth:`run_epoch` (``shard_grads``,
     ``cosim``, ``encode``, ``decode_reduce``, ``optimizer_step``).
+    ``telemetry``, a :class:`~repro_torch.telemetry.recorder.
+    FleetRecorder`, records the reference's wall-clock spans
+    (``shard_grads``, ``encode``, ``decode_reduce``, ``optimizer_step``)
+    and is handed to the cluster, which records its own (``compute_phase``,
+    ``comm``, ``decode``, the runtime's ``stage1``/``stage2``), its
+    per-slot series and its epoch events.  ``None`` (the default) records
+    nothing.
     """
 
     def __init__(self, cfg, spec: ScenarioSpec, scheme: str, dataset,
@@ -117,7 +125,8 @@ class CodedTrainer:
                  bytes_per_unit: float = DEFAULT_BYTES_PER_UNIT,
                  loss_fn: Optional[Callable] = None,
                  grad_fn: Optional[Callable] = None, device="cuda",
-                 phase_timer: Optional[Callable] = None):
+                 phase_timer: Optional[Callable] = None,
+                 telemetry: Optional[FleetRecorder] = None):
         if dataset.K != spec.K:
             raise ValueError(f"dataset has K={dataset.K} partitions, "
                              f"scenario wants K={spec.K}")
@@ -148,6 +157,9 @@ class CodedTrainer:
         self.spec = spec.with_overrides(grad_bytes=self.grad_bytes)
         self.cluster = build_cluster(self.spec, scheme, seed,
                                      device=self.device)
+        self.telemetry = telemetry
+        if telemetry is not None:
+            self.cluster.telemetry = telemetry
         if grad_fn is None:
             grad_fn = _value_and_grad(
                 loss_fn if loss_fn is not None else
@@ -162,10 +174,16 @@ class CodedTrainer:
         self.last_decoded: Optional[torch.Tensor] = None
         self.last_full_grad: Optional[torch.Tensor] = None
 
-    def _phase(self, name: str, epoch: int):
-        if self._phase_timer is None:
-            return contextlib.nullcontext()
-        return self._phase_timer(name, epoch)
+    def _phase(self, name: str, epoch: int, *, span: bool = True):
+        """The phase timer's context and, where ``span``, the recorder's
+        span, entered together."""
+        stack = contextlib.ExitStack()
+        if self._phase_timer is not None:
+            stack.enter_context(self._phase_timer(name, epoch))
+        if span:
+            stack.enter_context(phase_span(self.telemetry, name,
+                                           epoch=epoch))
+        return stack
 
     # ------------------------------------------------------------------ #
     def shard_gradients(self, epoch: int):
@@ -208,7 +226,7 @@ class CodedTrainer:
             losses, G = self.shard_gradients(epoch)
         # the co-sim epoch always runs (it owns the per-seed RNG stream),
         # whether or not the decode below ends up succeeding
-        with self._phase("cosim", epoch):
+        with self._phase("cosim", epoch, span=False):
             result = self.cluster.run_epoch(epoch)
         self.last_full_grad = G.sum(dim=0)
         if result.decode_ok:

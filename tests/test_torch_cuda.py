@@ -570,3 +570,74 @@ def test_lm_train_coded_step_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=2.0 ** -9)
     for p in tree_leaves(card["params"]):
         assert p.device.type == "cuda" and bool(torch.isfinite(p).all())
+
+
+def _epoch_fields(r):
+    c = r.comm
+    return (r.time, r.compute_time, r.comm_time, r.decode_ok,
+            r.n_stragglers, r.stage2_triggered, c.n_slots, c.idle_slots,
+            c.min_energy, c.max_overdraft, c.arrived.tobytes(),
+            c.bytes_admitted.tobytes(), c.bytes_transmitted.tobytes(),
+            c.queue_residual.tobytes(), c.final_energy.tobytes())
+
+
+@pytest.mark.parametrize("scenario", ["fading-uplink", "saturated-uplink"])
+def test_batched_fleet_on_card_equals_the_oracle(cuda_device, scenario):
+    """64 lanes of the batched engine on the card equal the card's oracle
+    on lanes 0 and 1 and the CPU's batched engine on every lane, bit for
+    bit (the scheduler's reductions do not depend on shape or device)."""
+    from repro_torch.sim import BatchedFleet, build_cluster
+    from repro_torch.sim.spec import fleet_seeds
+
+    spec = scenario_spec(scenario)
+    seeds = fleet_seeds(64, 0)
+    card = BatchedFleet(spec, "two-stage", seeds,
+                        device=cuda_device).run(2)
+    cpu = BatchedFleet(spec, "two-stage", seeds, device="cpu").run(2)
+    for e in range(2):
+        assert [_epoch_fields(r) for r in card[e]] == \
+            [_epoch_fields(r) for r in cpu[e]]
+    for i in (0, 1):
+        oracle = build_cluster(spec, "two-stage", seeds[i],
+                               device=cuda_device)
+        for e in range(2):
+            assert _epoch_fields(oracle.run_epoch(e)) == \
+                _epoch_fields(card[e][i])
+
+
+def test_scheduler_batched_call_on_card_equals_per_lane_calls(cuda_device):
+    from repro_torch.core.lyapunov import (Observation, QueueState,
+                                           SystemParams, schedule_slot)
+
+    rng = np.random.default_rng(0)
+    S, M = 64, 6
+
+    def rows(lo, hi, zeros=0.3):
+        x = rng.uniform(lo, hi, (S, M)) * (rng.random((S, M)) > zeros)
+        return torch.tensor(x, dtype=torch.float32, device=cuda_device)
+
+    def lane_scalars(choices):
+        return torch.tensor(rng.choice(choices, S), dtype=torch.float32,
+                            device=cuda_device)
+
+    state = QueueState(Q=rows(0, 4), H=rows(0, 8), E=rows(0, 10, 0.1),
+                       R=rows(0, 200), R_server=lane_scalars([0.0, 3.7]))
+    params = SystemParams(
+        T=lane_scalars([0.1, 0.3]), p=rows(0.2, 4, 0), delta=rows(
+            1e-4, 0.05, 0), xi=rows(0, 0.5, 0.2), f_max=rows(1, 100, 0),
+        F=lane_scalars([1.0, 100.0]),
+        E_cap=torch.full((S, M), 10.0, device=cuda_device),
+        V=lane_scalars([5.0, 50.0]), lam=torch.ones(S, M,
+                                                   device=cuda_device))
+    obs = Observation(D=rows(0, 3, 0.6), r=rows(0.25, 10, 0),
+                      E_H=rows(0, 1, 0), L=lane_scalars([1.0, 1.7, 3.0]),
+                      new_cycles=rows(0, 50, 0.7))
+    s_b, d_b = schedule_slot(state, params, obs)
+    for i in range(S):
+        def lane(t):
+            return type(t)(*(x[i] for x in t))
+        s_i, d_i = schedule_slot(lane(state), SystemParams(
+            **{k: getattr(params, k)[i] for k in params.__dataclass_fields__}),
+            lane(obs))
+        for a, b in zip(list(s_b) + list(d_b), list(s_i) + list(d_i)):
+            assert torch.equal(a[i].view(torch.int32), b.view(torch.int32))

@@ -54,5 +54,14 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.kernels.rglru_scan.ref",
                 "repro_torch.core.fel", "repro_torch.core.coded_step",
                 "repro_torch.checkpoint.checkpointer",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train",
+                "repro_torch.telemetry", "repro_torch.telemetry.metrics",
+                "repro_torch.telemetry.compilation",
+                "repro_torch.telemetry.recorder",
+                "repro_torch.telemetry.sinks", "repro_torch.telemetry.trace",
+                "repro_torch.telemetry.report",
+                "repro_torch.telemetry.runner",
+                "repro_torch.sim.batched_compute", "repro_torch.sim.batched",
+                "repro_torch.sim.fleet", "repro_torch.sim.montecarlo",
+                "repro_torch.sim.sweep"):
         assert mod in got["imported"]
