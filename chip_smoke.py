@@ -95,7 +95,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
               build per group at most; (e) a recorded fleet equal to the
               unrecorded one, its series equal to the oracle's, its
               Chrome trace valid JSON;
-12. times  -- each kernel, its plain version and one library call, timed
+12. device -- the device-resident epoch tail: ``compare_schemes`` with
+              ``engine="device"`` over the same 7 scenarios x 4 schemes x
+              64 seeds x 3 epochs, every lane-epoch bit-equal to (11a);
+              the host's waits for the card by torch's sync debug mode
+              (at most one a chunk and one an epoch); seconds and
+              seed-epochs/s beside the batched engine's;
+13. soak   -- ``repro_torch.sim.frontier.run_frontier`` at 2,000 slots
+              (the frontier's 5 scenarios and ``paper-v-sweep`` x their V
+              grids) on the card and on the CPU: points and pareto marks
+              equal, each scenario's best throughput within 10 % of the
+              committed 1M-slot ``BENCH_lyapunov_frontier.json``; each
+              stacked group's final float32 state bit-equal on the card
+              and the CPU, moments within rtol 1e-12, chunks of 500 and
+              2,000 bit-equal; ms a slot and lane-slots/s, card and CPU;
+14. times  -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take,
               the per-epoch phase split of the training paths and a
               profile of one prefill and its decode steps of each serve
@@ -2137,12 +2151,269 @@ def fleet_phase(smi: str) -> dict:
         f"unrecorded one; series of lanes 0, 1 equal the oracle's; "
         f"Chrome trace {n_ev} events ({smi})")
     out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card
     log(f"[fleet] phase passed in {out['seconds']:.1f} s ({smi})")
     return out
 
 
 # --------------------------------------------------------------------- #
-# 12. times
+# 12. device: the device-resident epoch tail
+# --------------------------------------------------------------------- #
+class _kept_fleets:
+    """Within the block, keep every ``BatchedFleet`` that runs (its
+    ``chunk_counters`` hold the chunk loop's chunks, waits and seconds)."""
+
+    def __enter__(self):
+        from repro_torch.sim.batched import BatchedFleet
+        self.fleets, self._run = [], BatchedFleet.run
+        fleets, run = self.fleets, self._run
+
+        def keep(fleet, *args, **kwargs):
+            fleets.append(fleet)
+            return run(fleet, *args, **kwargs)
+        BatchedFleet.run = keep
+        return self.fleets
+
+    def __exit__(self, *exc):
+        from repro_torch.sim.batched import BatchedFleet
+        BatchedFleet.run = self._run
+        return False
+
+
+def _counters(fleets) -> dict:
+    keys = ("chunks", "slots", "host_waits", "seconds")
+    return {k: sum(f.chunk_counters[k] for f in fleets) for k in keys}
+
+
+def device_engine_phase(smi: str, fleet: dict) -> dict:
+    """``compare_schemes(engine="device")`` on every registry scenario, 4
+    schemes x 64 seeds x 3 epochs: every lane-epoch bit-equal to the
+    ``fleet`` phase's batched run on the card; the host's waits for the
+    card counted by torch's sync debug mode; seconds and seed-epochs/s
+    beside the batched engine's."""
+    import torch
+
+    from repro_torch.sim import (available_scenarios, compare_schemes,
+                                 scenario_spec)
+    from repro_torch.sim.batched import BatchedFleet
+    from repro_torch.sim.spec import fleet_seeds
+
+    t_phase = time.perf_counter()
+    seeds = fleet_seeds(FLEET_SEEDS, 0)
+    out = {"a": {}}
+    total_s = 0.0
+    all_fleets = []
+    se = len(SCHEMES) * FLEET_SEEDS * FLEET_EPOCHS
+    for name in sorted(available_scenarios()):
+        spec = scenario_spec(name)
+        torch.cuda.synchronize()
+        with _kept_runs() as kept, _kept_fleets() as fleets:
+            t0 = time.perf_counter()
+            summ = compare_schemes(spec, n_seeds=FLEET_SEEDS,
+                                   n_epochs=FLEET_EPOCHS, engine="device",
+                                   device="cuda")
+            dt = time.perf_counter() - t0
+        total_s += dt
+        all_fleets += fleets
+        if any(f.tail != "device" for f in fleets) or len(fleets) != 4:
+            raise AssertionError(f"[device] {name}: not the device tail")
+        for scheme, run in zip(SCHEMES, kept):
+            if (run.scheme, run.seeds) != (scheme, seeds) or \
+                    run.summary() != summ[scheme]:
+                raise AssertionError(f"[device] {name}/{scheme}: not the "
+                                     f"run compare_schemes summarised")
+            for e in range(FLEET_EPOCHS):
+                _equal(f"[device] {name}/{scheme} epoch {e}",
+                       run.results[e], fleet["card"][(name, scheme)][e])
+        batched = fleet["a"][name]
+        out["a"][name] = {"seconds": dt, "seed_epochs_per_s": se / dt}
+        log(f"[device] {name}: compare_schemes {dt:.2f} s on the card, "
+            f"{se / dt:.0f} seed-epochs/s (batched, fleet (a): "
+            f"{batched['seconds']:.2f} s, {batched['seed_epochs_per_s']:.0f}"
+            f"/s); every lane-epoch bit-equal to (a) ({smi})")
+    cc = _counters(all_fleets)
+    out.update(seconds_total=total_s, counters=cc)
+    n_se = len(out["a"]) * se
+    log(f"[device] 7 scenarios x 4 schemes x {FLEET_SEEDS} seeds x "
+        f"{FLEET_EPOCHS} epochs: {total_s:.2f} s ({n_se / total_s:.0f} "
+        f"seed-epochs/s; batched {fleet['a_seconds']:.2f} s, "
+        f"{n_se / fleet['a_seconds']:.0f}/s); chunk loop {cc['chunks']} "
+        f"chunks, {cc['slots'] / cc['chunks']:.1f} slots and "
+        f"{1e3 * cc['seconds'] / cc['chunks']:.2f} ms a chunk; designed host "
+        f"waits {cc['host_waits']} = one a chunk + "
+        f"{cc['host_waits'] - cc['chunks']} (one an epoch) ({smi})")
+
+    # the host's waits: one single-chunk epoch and one of chunks of 32,
+    # each after a first epoch; waits = a·chunks + b solved from the two
+    counts = []
+    for scenario, chunk in (("homogeneous", None),
+                            ("saturated-uplink", 32)):
+        f = BatchedFleet(scenario_spec(scenario), "two-stage", seeds,
+                         chunk=chunk, tail="device", device="cuda")
+        f.run_epoch(0)
+        before = f.chunk_counters["chunks"]
+        _, msgs = _sync_count(lambda: f.run_epoch(1))
+        counts.append((f.chunk_counters["chunks"] - before, len(msgs)))
+    (c1, w1), (c2, w2) = counts
+    a = (w2 - w1) / (c2 - c1)
+    b = w1 - a * c1
+    out["waits"] = {"a_per_chunk": a, "b_per_epoch": b, "runs": counts}
+    log(f"[device] host waits for the card (torch's sync debug mode): {w1} "
+        f"in an epoch of {c1} chunk(s), {w2} in one of {c2} -> {a:.2f} a "
+        f"chunk + {b:.2f} an epoch ({smi})")
+    if a > 1.0 or b > 1.0:
+        raise AssertionError(f"[device] {a:.2f} waits a chunk, {b:.2f} an "
+                             f"epoch: more than one a chunk and one an "
+                             f"epoch")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[device] phase passed in {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 13. soak: the Lyapunov soak and its policy search
+# --------------------------------------------------------------------- #
+SOAK_SLOTS = 2000
+#: the committed 1M-slot run of the reference's frontier benchmark
+FRONTIER_BASELINE = ROOT / "benchmarks" / "baselines" / \
+    "BENCH_lyapunov_frontier.json"
+SOAK_MOMENTS = ("mean_Q", "max_Q", "mean_H", "mean_E", "admitted",
+                "delivered", "mean_y", "drift_slope", "throughput", "jain",
+                "utility")
+
+
+def _soak_equal(tag, a, b, rtol) -> float:
+    """Raise unless the final states of two soak results are bit-equal and
+    their moments agree within ``rtol``; return the largest relative
+    difference of the moments."""
+    import numpy as np
+    for f in a.final:
+        if not np.array_equal(a.final[f], b.final[f]):
+            raise AssertionError(f"{tag}: final {f} differs")
+    worst = 0.0
+    for f in SOAK_MOMENTS:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        np.testing.assert_allclose(x, y, rtol=rtol, atol=0,
+                                   err_msg=f"{tag}: {f}")
+        d = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def soak_phase(smi: str) -> dict:
+    """(a) ``run_frontier`` at 2,000 slots on the card: finite points,
+    each scenario's best throughput within 10 % of the committed 1M-slot
+    frontier; the same frontier on the CPU: pareto marks and points
+    equal; (b) each stacked group on the card and on the CPU: final
+    float32 states bit-equal, moments within rtol 1e-12, times a slot;
+    (c) chunks of 500 and 2,000 on the card bit-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sim import plan_groups, run_soak, soak_compat_key
+    from repro_torch.sim.frontier import (SCENARIOS, paper_cells,
+                                          run_frontier)
+    from repro_torch.sim.policy import policy_grid
+    from repro_torch.sim.scenarios import scenario_spec
+
+    t_phase = time.perf_counter()
+    base = json.loads(FRONTIER_BASELINE.read_text())["metrics"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_frontier(SOAK_SLOTS, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_frontier(SOAK_SLOTS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n_cells, n_pareto = 0, 0
+    for name, row in card["scenarios"].items():
+        pts = row["points"]
+        if pts != cpu["scenarios"][name]["points"]:
+            raise AssertionError(f"[soak] (a) {name}: points differ from "
+                                 f"the CPU's")
+        for p in pts:
+            if not all(np.isfinite(p[k]) for k in p if k != "pareto"):
+                raise AssertionError(f"[soak] (a) {name}: a point is not "
+                                     f"finite: {p}")
+            # the reference's bound: float32 rates carry 1e-6 slack
+            if not 0.0 < p["throughput"] <= p["capacity"] * (1 + 1e-6):
+                raise AssertionError(f"[soak] (a) {name}: throughput "
+                                     f"outside (0, capacity]: {p}")
+        want = base[f"frontier.{name}.max_throughput"]
+        got = row["max_throughput"]
+        if abs(got - want) > 0.10 * want:
+            raise AssertionError(f"[soak] (a) {name}: best throughput "
+                                 f"{got:.4f} not within 10 % of the "
+                                 f"committed 1M-slot {want:.4f}")
+        n_cells += len(pts)
+        n_pareto += sum(p["pareto"] for p in pts)
+        log(f"[soak] (a) {name}: max throughput {got:.4f} (committed "
+            f"1M-slot frontier {want:.4f}), max jain "
+            f"{row['max_jain']:.4f}, max mean qtot "
+            f"{row['max_mean_qtot']:.2f}, max drift ratio "
+            f"{row['max_drift_ratio']:.4f}, pareto V "
+            f"{['%g' % p['V'] for p in pts if p['pareto']]}")
+    lane_slots = n_cells * SOAK_SLOTS
+    out = {"frontier": {"card_s": card_s, "cpu_s": cpu_s,
+                        "cells": n_cells,
+                        "card_lane_slots_per_s": lane_slots / card_s,
+                        "cpu_lane_slots_per_s": lane_slots / cpu_s},
+           "groups": []}
+    log(f"[soak] (a) run_frontier({SOAK_SLOTS}): {n_cells} cells finite "
+        f"and within their envelopes, each scenario's best within 10 % of "
+        f"the committed 1M-slot frontier; card {card_s:.2f} s "
+        f"({lane_slots / card_s:.0f} lane-slots/s), CPU {cpu_s:.2f} s "
+        f"({lane_slots / cpu_s:.0f} lane-slots/s); points and pareto marks "
+        f"({n_pareto} of {n_cells}) equal ({smi})")
+
+    # (b), (c): each stacked group on its own
+    cells = policy_grid([scenario_spec(s) for s in SCENARIOS]) + \
+        paper_cells()
+    lanes = [c.lane for c in cells]
+    worst = 0.0
+    for idxs in plan_groups(lanes, key=soak_compat_key):
+        group = [lanes[i] for i in idxs]
+        M, kind = soak_compat_key(group[0])
+        tag = f"M={M} {kind} x {len(group)} lanes"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = run_soak(group, SOAK_SLOTS, device="cuda")
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = run_soak(group, SOAK_SLOTS, device="cpu")
+        p_s = time.perf_counter() - t0
+        worst = max(worst, _soak_equal(f"[soak] (b) {tag}", on_card, on_cpu,
+                                       rtol=1e-12))
+        t0 = time.perf_counter()
+        small = run_soak(group, SOAK_SLOTS, chunk=500, device="cuda")
+        s_s = time.perf_counter() - t0
+        _soak_equal(f"[soak] (c) {tag} chunk 500", small, on_card, rtol=0)
+        g = {"group": tag, "lanes": len(group), "card_s": c_s,
+             "cpu_s": p_s, "card_ms_slot": 1e3 * c_s / SOAK_SLOTS,
+             "cpu_ms_slot": 1e3 * p_s / SOAK_SLOTS,
+             "card_lane_slots_per_s": len(group) * SOAK_SLOTS / c_s,
+             "cpu_lane_slots_per_s": len(group) * SOAK_SLOTS / p_s,
+             "chunk500_s": s_s}
+        out["groups"].append(g)
+        log(f"[soak] (b) {tag}: {SOAK_SLOTS} slots on the card in "
+            f"{c_s:.2f} s ({g['card_ms_slot']:.3f} ms a slot, "
+            f"{g['card_lane_slots_per_s']:.0f} lane-slots/s), on the CPU in "
+            f"{p_s:.2f} s ({g['cpu_ms_slot']:.3f} ms a slot, "
+            f"{g['cpu_lane_slots_per_s']:.0f} lane-slots/s); final float32 "
+            f"states bit-equal; (c) chunks of 500 ({s_s:.2f} s) bit-equal "
+            f"({smi})")
+    log(f"[soak] (b) moments within rtol 1e-12 (largest relative "
+        f"difference {worst:.3g}); (c) chunks 500 and {SOAK_SLOTS} "
+        f"bit-equal on the card")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[soak] phase passed in {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 14. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -2767,7 +3038,10 @@ def main() -> int:
     lmt = lm_train_phase()
     served = serve_phase()
     rg_out = rg_serve_phase()
-    fleet_phase(smi)
+    fleet = fleet_phase(smi)
+    device_engine_phase(smi, fleet)
+    del fleet
+    soak_phase(smi)
     kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
                           rg_errs, fel, lmt)
     import torch

@@ -13,9 +13,13 @@ event-driven oracle; :class:`BatchedFleet` runs a whole fleet of seeds
 (and of stacked scenario cells, :func:`sweep`) through one chunk loop on
 the card.  The front door is :class:`Fleet`:
 ``Fleet(spec).run(scheme, seeds, engine=...)`` dispatches the engines in
-:data:`ENGINES`, with :func:`run_fleet` and :func:`compare_schemes` as
-wrappers.  The ``"device"`` engine, the reference's soak harness and its
-policy search are not ported yet (ROADMAP.md, queue 1).
+:data:`ENGINES` — including ``"device"``, which keeps the epoch's stop
+state machine on the card (``device_epoch``) — with :func:`run_fleet`
+and :func:`compare_schemes` as wrappers.  :func:`run_soak` runs the
+scheduler alone for many slots (``soak``), and :func:`policy_search`
+sweeps its V/θ/D knobs into throughput–fairness frontiers (``policy``).
+The reference's ``shard_map`` over a device mesh has no counterpart: one
+card batches every lane.
 """
 from .events import COMPUTE_DONE, SLOT_TICK, Event, EventEngine
 from .channel import (ChannelModel, CommTape, GilbertElliottChannel,
@@ -35,6 +39,10 @@ from .batched_compute import (batched_comm_jobs, batched_compute_phase,
 from .montecarlo import (FleetSummary, compare_schemes, run_experiment,
                          run_fleet, summarize_fleet)
 from .sweep import compat_key, plan_groups, sweep
+from .soak import (SoakLane, SoakResult, run_soak, soak_compat_key,
+                   soak_observations)
+from .policy import (PolicyCell, PolicyPoint, frontier_dict, policy_grid,
+                     policy_search)
 
 __all__ = [
     "COMPUTE_DONE", "SLOT_TICK", "Event", "EventEngine",
@@ -53,4 +61,8 @@ __all__ = [
     "FleetSummary", "run_fleet", "run_experiment", "compare_schemes",
     "summarize_fleet",
     "compat_key", "plan_groups", "sweep",
+    "SoakLane", "SoakResult", "run_soak", "soak_compat_key",
+    "soak_observations",
+    "PolicyCell", "PolicyPoint", "frontier_dict", "policy_grid",
+    "policy_search",
 ]

@@ -147,6 +147,27 @@ def reset_scan_compile_cache() -> None:
 _OUTS = ("d", "c", "Q", "E", "pend", "e_up", "e_com")
 
 
+def _slot_step(state, pending, ch_state, xs, j, consts, channel_step,
+               zeros):
+    """Slot ``j`` of a chunk: the float32 physics both tails run, verbatim
+    (``repro_torch.sim.device_epoch`` calls it too).  Returns the new
+    queue state, pending payloads, channel state and the decisions."""
+    sysp, gb, L, chp = consts
+    # workers whose gradient became ready by this slot's tick join the
+    # pending pool (ties ready == k*T resolved on the host)
+    pending = pending + gb * xs["join"][j]
+    if channel_step is not None:
+        r, ch_state = channel_step(
+            chp, ch_state, {k: v[j] for k, v in xs["ch"].items()},
+            xs["k0"] + j)
+    else:
+        r = xs["r"][j]
+    obs = Observation(D=pending, r=r, E_H=xs["h"][j], L=L, new_cycles=zeros)
+    state, dec = batched_schedule_slot(state, sysp, obs)
+    pending = pending - torch.minimum(pending, dec.d)
+    return state, pending, ch_state, dec
+
+
 @lru_cache(maxsize=64)
 def _chunk_runner(channel_step, S: int, M: int, telemetry: bool = False,
                   device: str = "cuda"):
@@ -166,31 +187,18 @@ def _chunk_runner(channel_step, S: int, M: int, telemetry: bool = False,
     global _runner_builds
     _runner_builds += 1
     note_compile("comm_scan")
-    stateful = channel_step is not None
     names = _OUTS + (("H",) if telemetry else ())
     dev = torch.device(device)
     zeros = torch.zeros((S, M), dtype=torch.float32, device=dev)
 
     def run(carry, xs, consts):
         state, pending, ch_state = carry
-        sysp, gb, L, chp = consts
         n = xs["h"].shape[0]
         out = torch.empty((n, len(names), S, M), dtype=torch.float32,
                           device=dev)
         for j in range(n):
-            # workers whose gradient became ready by this slot's tick join
-            # the pending pool (ties ready == k*T resolved on the host)
-            pending = pending + gb * xs["join"][j]
-            if stateful:
-                r, ch_state = channel_step(
-                    chp, ch_state, {k: v[j] for k, v in xs["ch"].items()},
-                    xs["k0"] + j)
-            else:
-                r = xs["r"][j]
-            obs = Observation(D=pending, r=r, E_H=xs["h"][j], L=L,
-                              new_cycles=zeros)
-            state, dec = batched_schedule_slot(state, sysp, obs)
-            pending = pending - torch.minimum(pending, dec.d)
+            state, pending, ch_state, dec = _slot_step(
+                state, pending, ch_state, xs, j, consts, channel_step, zeros)
             row = [dec.d, dec.c, state.Q, state.E, pending, dec.e_up,
                    dec.e_com]
             if telemetry:
@@ -454,9 +462,7 @@ def _chunk_xs(clusters, tapes, visible: np.ndarray, k0: int, chunk: int,
         slots = np.arange(k0, k0 + chunk)
         host[2] = np.stack([c.channel.rates_for_slots(slots)
                             for c in clusters], axis=1)
-    x = torch.from_numpy(host)
-    if device.type == "cuda":
-        x = x.pin_memory().to(device, non_blocking=True)
+    x = _to_device(host, device)
     xs = {"h": x[0], "join": x[1], "k0": k0}
     if stateful:
         flips = x[2:] != 0
@@ -464,6 +470,33 @@ def _chunk_xs(clusters, tapes, visible: np.ndarray, k0: int, chunk: int,
     else:
         xs["r"] = x[2]
     return xs
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: from pinned memory and asynchronous on
+    the card, so the host never waits for the copy."""
+    x = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        x = x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
+def _initial_carry(clusters, tapes, physics: _StackedPhysics) -> tuple:
+    """The chunk loop's first carry: empty queues at each lane's battery
+    level, nothing pending, and each lane's channel state drawn from its
+    tape (stateful channels only)."""
+    S, M = physics.gb.shape
+    z = torch.zeros((S, M), dtype=torch.float32, device=physics.device)
+    state = QueueState(Q=z, H=z, E=physics.E_init, R=z,
+                       R_server=torch.zeros((S,), dtype=torch.float32,
+                                            device=physics.device))
+    if clusters[0].channel.stateful:
+        ch_state = _to_device(np.stack(
+            [c.channel.init_state_np(t.u_init)
+             for c, t in zip(clusters, tapes)]), physics.device)
+    else:
+        ch_state = ()
+    return state, z, ch_state
 
 
 def _batched_comm(clusters: Sequence[EdgeCluster],
@@ -493,19 +526,7 @@ def _batched_comm(clusters: Sequence[EdgeCluster],
         str(dev))
     consts = (physics.sysp, physics.gb, physics.L, physics.chp)
 
-    z = torch.zeros((S, M), dtype=torch.float32, device=dev)
-    state = QueueState(Q=z, H=z, E=physics.E_init, R=z,
-                       R_server=torch.zeros((S,), dtype=torch.float32,
-                                            device=dev))
-    if stateful:
-        ch0 = torch.from_numpy(np.stack(
-            [c.channel.init_state_np(t.u_init)
-             for c, t in zip(clusters, tapes)]))
-        ch_state = (ch0.pin_memory().to(dev, non_blocking=True)
-                    if dev.type == "cuda" else ch0)
-    else:
-        ch_state = ()
-    carry = (state, z, ch_state)
+    carry = _initial_carry(clusters, tapes, physics)
 
     tracker = _StopTracker(jobs, clusters, visible, grid_len)
     names = _OUTS + (("H",) if series else ())
@@ -567,6 +588,15 @@ class BatchedFleet:
     picked from the physics (:func:`pick_chunk`).  Results are identical
     for every legal chunk.
 
+    ``tail`` selects where the per-slot stop tracking runs: ``"host"``
+    (default) replays each chunk's outputs through the numpy
+    :class:`_StopTracker`; ``"device"`` keeps the whole stop state
+    machine in the chunk loop's carry on the fleet's device
+    (``repro_torch.sim.device_epoch``), bit-identical by contract.  A
+    recorder that wants per-slot series runs the host tail.  ``mesh=``
+    (device tail only) raises ``NotImplementedError``: one card batches
+    every lane.
+
     ``device`` is where the chunk loop runs: by default the card, or,
     with explicit ``clusters=``, the clusters' device (which must be one).
     Nothing falls back to the CPU.  ``chunk_counters`` accumulates, over the
@@ -580,11 +610,24 @@ class BatchedFleet:
                  scheme: str = "two-stage", seeds: Sequence[int] = (0,),
                  *, clusters: Optional[Sequence[EdgeCluster]] = None,
                  compute: str = "batched", chunk: Optional[int] = None,
+                 tail: str = "host", mesh=None,
                  telemetry: Optional[FleetRecorder] = None,
                  device=None, **overrides):
         if compute not in ("batched", "host"):
             raise ValueError(f"compute must be 'batched' or 'host', "
                              f"got {compute!r}")
+        if tail not in ("host", "device"):
+            raise ValueError(f"tail must be 'host' or 'device', "
+                             f"got {tail!r}")
+        if mesh is not None and tail != "device":
+            raise ValueError("mesh= requires tail='device' (the host tail "
+                             "never shards the seed axis)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: one card batches every lane of the device tail, so "
+                "the port does not shard the seed axis; sharding over "
+                "several cards waits for the port of launch/mesh "
+                "(ROADMAP.md, queue 1, item 5)")
         if clusters is None:
             if scenario is None:
                 raise ValueError("need a scenario spec or explicit clusters")
@@ -618,6 +661,7 @@ class BatchedFleet:
                              f"on one device (device={device!r})")
         self.device = c0.device
         self.compute = compute
+        self.tail = tail
         self.clusters = clusters
         # stacked per-lane physics, built once and reused every epoch
         self._physics = stack_fleet_physics(clusters, self.device)
@@ -654,10 +698,20 @@ class BatchedFleet:
             else:
                 jobs = [c.comm_job(epoch) for c in self.clusters]
         with phase_span(rec, "comm", epoch=epoch):
-            stats = _batched_comm(self.clusters, jobs, self.chunk,
-                                  physics=self._physics, telemetry=rec,
-                                  epoch=epoch,
-                                  counters=self.chunk_counters)
+            # per-slot series telemetry needs the chunk outputs the device
+            # tail never copies to the host — that one observability mode
+            # falls back to the (bit-identical) host tail
+            series = rec is not None and rec.wants_series
+            if self.tail == "device" and not series:
+                from repro_torch.sim.device_epoch import device_comm
+                stats = device_comm(self.clusters, jobs, self.chunk,
+                                    physics=self._physics,
+                                    counters=self.chunk_counters)
+            else:
+                stats = _batched_comm(self.clusters, jobs, self.chunk,
+                                      physics=self._physics, telemetry=rec,
+                                      epoch=epoch,
+                                      counters=self.chunk_counters)
         with phase_span(rec, "decode", epoch=epoch):
             results = [job.assemble(st) for job, st in zip(jobs, stats)]
         if rec:

@@ -9,9 +9,8 @@ thin wrappers over it.
 
 :data:`ENGINES` is the reference's list of engine names, in its order;
 every entry point validates against it through :func:`validate_engine`.
-The ``"device"`` engine (the reference's device-resident epoch tail,
-``repro.sim.device_epoch``) is not ported yet: :func:`validate_engine`
-raises ``NotImplementedError`` for it, before any work.
+``engine="device"`` keeps the stop state machine in the chunk loop's
+carry on the card (``repro_torch.sim.device_epoch``).
 """
 from __future__ import annotations
 
@@ -28,29 +27,24 @@ __all__ = ["ENGINES", "Fleet", "FleetRun", "validate_engine"]
 
 #: The valid ``engine=`` names, the reference's, in its order:
 #: ``batched`` — compute and comm phases batched over seeds, stop
-#: tracking on the host (the default); ``device`` — the stop state machine
-#: on the device (not ported: raises ``NotImplementedError``); ``hybrid``
-#: — per-seed host compute phase + batched comm phase; ``oracle`` — the
-#: event-driven per-seed reference loop.  The engines that run draw
+#: tracking on the host (the default); ``device`` — the same compute
+#: phase, with the stop state machine in the chunk loop's carry on the
+#: device; ``hybrid`` — per-seed host compute phase + batched comm phase;
+#: ``oracle`` — the event-driven per-seed reference loop.  All four draw
 #: identical per-seed randomness tapes and produce identical per-epoch
 #: results.
 ENGINES = ("batched", "device", "hybrid", "oracle")
 
 #: ``BatchedFleet`` knobs behind each batched-engine name.
-_ENGINE_KNOBS = {"batched": {"compute": "batched"},
-                 "hybrid": {"compute": "host"}}
+_ENGINE_KNOBS = {"batched": {"compute": "batched", "tail": "host"},
+                 "device": {"compute": "batched", "tail": "device"},
+                 "hybrid": {"compute": "host", "tail": "host"}}
 
 
 def validate_engine(engine: str) -> None:
-    """Raise the canonical error unless ``engine`` is one of ENGINES, and
-    ``NotImplementedError`` for the engine that is not ported yet."""
+    """Raise the canonical error unless ``engine`` is one of ENGINES."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if engine == "device":
-        raise NotImplementedError(
-            "engine='device': the device-resident epoch tail (the "
-            "reference's repro.sim.device_epoch) is not ported yet; see "
-            "ROADMAP.md, queue 1, for the slice that adds it")
 
 
 @dataclasses.dataclass
@@ -109,6 +103,8 @@ class Fleet:
         ``True`` makes this call own the recorder — run meta is stamped
         and the event stream is flushed to ``sinks``.  The fleet runs on
         ``device``: the card unless the caller asks for ``"cpu"``.
+        ``mesh`` (``engine="device"`` only) raises
+        ``NotImplementedError``: one card batches every lane.
         """
         validate_engine(engine)
         if n_epochs < 1 or not len(seeds):
@@ -134,7 +130,7 @@ class Fleet:
                          engine=engine, n_seeds=len(seeds),
                          n_epochs=int(n_epochs))
 
-        if mesh is not None:
+        if mesh is not None and engine != "device":
             raise ValueError(f"mesh= requires engine='device' (the other "
                              f"engines never shard the seed axis), got "
                              f"engine={engine!r}")
@@ -153,7 +149,7 @@ class Fleet:
                        for e in range(n_epochs)]
         else:
             fleet = BatchedFleet(self.spec, scheme, seeds, chunk=chunk,
-                                 telemetry=rec, device=device,
+                                 mesh=mesh, telemetry=rec, device=device,
                                  **_ENGINE_KNOBS[engine])
             results = fleet.run(n_epochs)
         if owns_rec:

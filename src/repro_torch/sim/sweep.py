@@ -66,7 +66,9 @@ def plan_groups(grid: Sequence, *, key=None) -> List[List[int]]:
     With the default ``key=None`` the grid must be
     :class:`ExperimentSpec` cells and :func:`compat_key` is the
     signature; passing ``key=`` generalizes the same partition to other
-    cell types with their own structural signature.
+    cell types with their own structural signature — the soak grids of
+    ``repro_torch.sim.policy`` group their lanes through here with
+    ``key=soak_compat_key``.
     """
     keyfn = compat_key if key is None else key
     groups: Dict[Tuple, List[int]] = {}
@@ -89,8 +91,10 @@ def sweep(grid: Sequence[ExperimentSpec], *, engine: str = "batched",
     ``repro_torch.sim.batched_compute`` but still share the one chunk
     runner); ``engine="hybrid"`` stacks the same fleets with the per-seed
     host compute loop; ``engine="oracle"`` runs each cell through the
-    event-driven loop instead (the differential baseline).
-    ``engine="device"`` is not ported and raises."""
+    event-driven loop instead (the differential baseline);
+    ``engine="device"`` stacks the same fleets as ``"batched"`` and keeps
+    the stop state machine in the chunk loop's carry
+    (``repro_torch.sim.device_epoch``)."""
     grid = list(grid)
     groups = plan_groups(grid)      # also validates cell types, any engine
     validate_engine(engine)
@@ -105,7 +109,9 @@ def sweep(grid: Sequence[ExperimentSpec], *, engine: str = "batched",
                     for c in cells for seed in c.seeds]
         fleet = BatchedFleet(clusters=clusters, device=device,
                              compute=("host" if engine == "hybrid"
-                                      else "batched"))
+                                      else "batched"),
+                             tail=("device" if engine == "device"
+                                   else "host"))
         per_epoch = fleet.run(max(c.n_epochs for c in cells))
         lane = 0
         for i, cell in zip(idxs, cells):

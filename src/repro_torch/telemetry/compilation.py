@@ -7,6 +7,8 @@ port traces nothing, so its sites count what it does build:
 
   * ``comm_scan`` — each chunk runner the batched fleet engine builds
     (a cache miss of ``repro_torch.sim.batched._chunk_runner``);
+  * ``device_comm_scan`` — each device-tail runner (a cache miss of
+    ``repro_torch.sim.device_epoch._tail_runner``);
   * ``kernel_build:<name>`` — each ``nvcc`` build of a CUDA source
     (``repro_torch.kernels._build``), ``<name>`` being the source's stem.
 

@@ -10,8 +10,8 @@ package's engines.
     tolerance of ``tests/test_torch_cluster.py``) — in fact every field
     is equal to the last bit, since the scheduler rounds as XLA does —
     and ``FleetSummary`` rows are equal as strings;
-  * the facade's engine names, errors and the unported ``"device"``
-    engine.
+  * the facade's engine names and errors, and ``engine="device"`` equal
+    to ``engine="batched"`` through each entry point.
 """
 import jax
 import jax.experimental
@@ -236,16 +236,19 @@ def test_engine_names_and_errors_follow_the_reference():
 
 
 @pytest.mark.parametrize("call", [
-    lambda spec: Fleet(spec).run("two-stage", (0,), engine="device",
-                                 device="cpu"),
-    lambda spec: port_sim.run_fleet(spec, n_seeds=1, engine="device",
-                                    device="cpu"),
-    lambda spec: port_sim.sweep([port_sim.ExperimentSpec(scenario=spec)],
-                                engine="device", device="cpu"),
-])
-def test_device_engine_raises_with_a_roadmap_pointer(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(scenario_spec("homogeneous"))
+    lambda spec, engine: Fleet(spec).run(
+        "two-stage", (0, 7), n_epochs=2, engine=engine,
+        device="cpu").summary(),
+    lambda spec, engine: port_sim.run_fleet(
+        spec, n_seeds=2, n_epochs=2, engine=engine, device="cpu"),
+    lambda spec, engine: port_sim.sweep(
+        [port_sim.ExperimentSpec(scenario=spec, scheme=s, n_seeds=2,
+                                 n_epochs=2) for s in SCHEMES],
+        engine=engine, device="cpu"),
+], ids=["Fleet.run", "run_fleet", "sweep"])
+def test_device_engine_equals_the_batched_engine(call):
+    spec = scenario_spec("fading-uplink")
+    assert call(spec, "device") == call(spec, "batched")
 
 
 def test_fleet_run_and_wrappers_agree():

@@ -63,5 +63,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.telemetry.runner",
                 "repro_torch.sim.batched_compute", "repro_torch.sim.batched",
                 "repro_torch.sim.fleet", "repro_torch.sim.montecarlo",
-                "repro_torch.sim.sweep"):
+                "repro_torch.sim.sweep", "repro_torch.sim.threefry",
+                "repro_torch.sim.device_epoch", "repro_torch.sim.soak",
+                "repro_torch.sim.policy", "repro_torch.sim.frontier"):
         assert mod in got["imported"]
