@@ -30,7 +30,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               recurrentgemma path's shape; the attention forward at head width
               256 (MQA, G = 10) with a window of 2,048 over 3,000 tokens and
               at the recurrentgemma path's shape, and the backward's refusal
-              of that width; each with its stated tolerance;
+              of that width; the attention forward at the shapes of the
+              moe and zoo paths (D = 64 at G = 3; 128 at G = 5, 6, 8; 80
+              non-causal; 256 at G = 2 with a window of 1,024) and where
+              their windows and padding bite; each with its stated
+              tolerance;
 4. mlp     -- the first path: ``CodedTrainer`` with the paper's MLP
               (784, 256, 128, 10) on ``bursty-stragglers``, 10,000 examples
               per partition, AdamW(1e-3), 4 schemes x 3 epochs, on the card,
@@ -82,7 +86,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
               of 2,048) and 2,560 tokens (a ring from prefill), in bf16 and
               float32, the model on the card against the CPU at REDUCED,
               and the REDUCED serve loop on the card and the CPU;
-11. fleet  -- the batched fleet engines (no kernel of the port): (a)
+11. moe    -- the same serve loop and traffic with granite-moe-3b-a800m at
+              full size (32 layers, 40 experts top-8, 3.37 B parameters,
+              bf16 compute): each prefill runs the attention forward in its
+              32 layers; the share of assignments each layer's prefill
+              drops; the structural check (float32 at capacity 8: prefill
+              and teacher-forced decode against a fresh forward); one MoE
+              layer's dispatch of 4,096 tokens equal on the card and the
+              CPU, and its float32 output within ``MOE_FFN_TOL``; the
+              REDUCED model card vs CPU and the REDUCED serve loop on both;
+12. zoo    -- the six other new configs at full width, depth cut as
+              ``ZOO`` says (hubert-xlarge uncut; llama4 in bf16 weights):
+              a bf16 prefill of 2 x 1,024 and one decode step (hubert: a
+              forward), then the float32 route against a fresh forward
+              (hubert: a batch of two against each sequence alone) within
+              ``ZOO_F32_TOL`` (the weights conditioned to ``NUDGE_MARGIN``
+              times inside it), and bf16 within ``ZOO_BF16_TOL`` of
+              float32; each row's attention launches counted, the windowed
+              ones apart; llama4's float32
+              route is its structural check at capacity 8;
+13. fleet  -- the batched fleet engines (no kernel of the port): (a)
               ``compare_schemes`` on every registry scenario, 4 schemes x
               64 seeds x 3 epochs (``fleet_scale.py``'s FULL size), on
               the card, every lane's outcomes equal to the same fleets on
@@ -95,13 +118,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
               build per group at most; (e) a recorded fleet equal to the
               unrecorded one, its series equal to the oracle's, its
               Chrome trace valid JSON;
-12. device -- the device-resident epoch tail: ``compare_schemes`` with
+14. device -- the device-resident epoch tail: ``compare_schemes`` with
               ``engine="device"`` over the same 7 scenarios x 4 schemes x
               64 seeds x 3 epochs, every lane-epoch bit-equal to (11a);
               the host's waits for the card by torch's sync debug mode
               (at most one a chunk and one an epoch); seconds and
               seed-epochs/s beside the batched engine's;
-13. soak   -- ``repro_torch.sim.frontier.run_frontier`` at 2,000 slots
+15. soak   -- ``repro_torch.sim.frontier.run_frontier`` at 2,000 slots
               (the frontier's 5 scenarios and ``paper-v-sweep`` x their V
               grids) on the card and on the CPU: points and pareto marks
               equal, each scenario's best throughput within 10 % of the
@@ -109,11 +132,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
               stacked group's final float32 state bit-equal on the card
               and the CPU, moments within rtol 1e-12, chunks of 500 and
               2,000 bit-equal; ms a slot and lane-slots/s, card and CPU;
-14. times  -- each kernel, its plain version and one library call, timed
-              with CUDA events, beside the least time the card could take,
-              the per-epoch phase split of the training paths and a
-              profile of one prefill and its decode steps of each serve
-              path.
+16. times  -- each kernel, its plain version and one library call, timed
+              with CUDA events, beside the least time the card could take
+              (the attention forward also at each moe and zoo shape), the
+              per-epoch phase split of the training paths and a profile of
+              one prefill and its decode steps of each serve path.
 
 Launch counts are zeroed just before each path and read just after it.
 The line before the last holds one JSON object with every kernel's
@@ -166,6 +189,20 @@ RG_FA_PATH, RG_WINDOW = (4, 1024, 1, 10, 256), 2048
 #: teacher-forced prompts: below the window, decoding across its edge,
 #: and above it (a ring from prefill)
 RG_TF_PROMPTS = (1024, 2040, 2560)
+# the granite-moe-3b-a800m serve path: full size, the same traffic (SERVE)
+#: the attention of its prefill: (B, S, KV, G, D), causal
+GRANITE_FA_PATH = (4, 1024, 8, 3, 64)
+#: the dispatch check: one MoE layer at full width over this many tokens
+MOE_DISPATCH_T = 4096
+#: the structural check (float32, capacity 8: nothing dropped): batch,
+#: prompt length and teacher-forced decode steps
+MOE_TF_B, MOE_TF_PROMPT, MOE_TF_STEPS = 2, 512, 4
+# the zoo: the other new configs at full width, one batch of ZOO_B x ZOO_S
+ZOO_B, ZOO_S = 2, 1024
+#: (arch, layers kept: None = all), smallest first
+ZOO = (("hubert-xlarge", None), ("internvl2-26b", 2), ("qwen3-14b", 2),
+       ("gemma3-12b", 6), ("deepseek-67b", 2),
+       ("llama4-maverick-400b-a17b", 2))
 
 
 def log(msg: str) -> None:
@@ -217,7 +254,18 @@ def no_launches(**n) -> dict:
 
 
 def reset_counts() -> None:
+    """Every count at 0, the windowed share of the attention forward's
+    (``windowed_launches``) too."""
+    from repro_torch.kernels.flash_attention import flash_attention
     set_counts(no_launches())
+    flash_attention.fwd_windowed_launches = 0
+
+
+def windowed_launches() -> int:
+    """Attention forward launches with a sliding window since
+    ``reset_counts``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    return flash_attention.fwd_windowed_launches
 
 
 def read_counts() -> dict:
@@ -240,6 +288,10 @@ def device_phase():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
+    # float32 products in full float32, as the reference computes them
+    # (the trainers set this too; every float32 check below relies on it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -749,6 +801,74 @@ def flash256_kernel_phase() -> float:
         raise AssertionError("the backward took head width 256")
     torch.cuda.empty_cache()
     return path_err
+
+
+#: the attention forwards of the granite serve path and the zoo, each at
+#: its path's shape: (tag, row name in the ``kernels`` line, (B, S, KV,
+#: G, D), causal, window, the archs whose layers launch it); a row takes
+#: its launches from those archs' counts, the windowed ones where it has
+#: a window, the others where it has none
+ZOO_FA_PATHS = (
+    ("granite", "granite", GRANITE_FA_PATH, True, 0,
+     ("granite-moe-3b-a800m",)),
+    ("d128 G5 (qwen3, llama4)", "d128_g5", (2, 1024, 8, 5, 128), True, 0,
+     ("qwen3-14b", "llama4-maverick-400b-a17b")),
+    ("d128 G6 (internvl2)", "d128_g6", (2, 1024, 8, 6, 128), True, 0,
+     ("internvl2-26b",)),
+    ("d128 G8 (deepseek)", "d128_g8", (2, 1024, 8, 8, 128), True, 0,
+     ("deepseek-67b",)),
+    ("d80 non-causal (hubert)", "d80_noncausal", (2, 1024, 16, 1, 80),
+     False, 0, ("hubert-xlarge",)),
+    ("d256 G2 window 1024 (gemma3 local)", "d256_w1024",
+     (2, 1024, 8, 2, 256), True, 1024, ("gemma3-12b",)),
+    ("d256 G2 (gemma3 global)", "d256_g2", (2, 1024, 8, 2, 256), True, 0,
+     ("gemma3-12b",)))
+#: the same widths where the window or the padding bites: a window of
+#: 1,024 over 3,000 tokens, and ragged sequences (no row, no path)
+ZOO_FA_EXTRA = (
+    ("d256 G2 window 1024, 3000 tokens", None, (1, 3000, 8, 2, 256), True,
+     1024, ()),
+    ("d80 non-causal ragged", None, (1, 1500, 16, 1, 80), False, 0, ()),
+    ("d80 causal window 300 ragged", None, (1, 700, 4, 2, 80), True, 300,
+     ()),
+    ("d128 G5 ragged", None, (1, 1000, 8, 5, 128), True, 0, ()))
+
+
+def zoo_kernel_phase() -> dict:
+    """The attention forward at the head widths and group sizes that the
+    MoE serve path and the zoo give it (64 at G = 3; 128 at G = 5, 6, 8;
+    80 non-causal; 256 at G = 2 with a window of 1,024), in bf16 (tensor
+    cores) and float32 (CUDA cores), against its plain version with
+    ``FA_TOL``'s forward bounds; returns the largest bf16 error at each
+    path shape, by tag."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    errs = {}
+    for tag, _, shape, causal, window, _ in ZOO_FA_PATHS + ZOO_FA_EXTRA:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _ = _fa_inputs(0, shape, dtype)
+            kw = dict(causal=causal, window=window, q_chunk=1024,
+                      kv_chunk=1024)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
+            name = str(dtype)[6:]
+            fr, fa = FA_TOL[name][0]
+            e = max(check_close(f"fa {tag} {shape} out", out, out_r, fr, fa),
+                    check_close(f"fa {tag} {shape} lse", lse, lse_r, 1e-5,
+                                1e-5))
+            log(f"[kernels] flash_attention forward {tag} {shape} {name} "
+                f"causal={causal} window={window} "
+                f"({kernel_route(dtype, shape[4])}): max abs err {e:.3e} "
+                f"(rtol {fr}, atol {fa})")
+            if dtype == torch.bfloat16:
+                errs[tag] = e
+            del q, k, v, out, lse, out_r, lse_r
+    torch.cuda.empty_cache()
+    return errs
 
 
 # --------------------------------------------------------------------- #
@@ -1392,39 +1512,43 @@ def serve_params(cfg, device):
     return _draw_zero_init(init_params(cfg, gen, device=device), gen)
 
 
-def forward_logits(params, cfg, tokens, start):
-    """Logits of a fresh forward over ``tokens`` (1, n) at positions
-    ``start`` onwards, float32 (the model's head: tied or its own)."""
+def batch_logits(params, cfg, batch, positions):
+    """Float32 logits (B, len(positions), V) of a fresh forward over
+    ``batch`` (the model's head: tied or its own)."""
     import torch
 
     from repro_torch.models.transformer import _lm_head, forward
     with torch.no_grad():
-        x, _ = forward(params, {"tokens": tokens}, cfg)
+        x, _ = forward(params, batch, cfg)
         head = _lm_head(params, cfg).to(getattr(torch, cfg.compute_dtype))
-        return (x[0, start:] @ head).float()
+        return (x[:, positions] @ head).float()
 
 
-def teacher_forced(params, cfg, prompt, gen_len):
-    """Greedy decode of ``gen_len`` tokens after ``prompt`` (1, S), then
-    one forward over the prompt and the generated tokens.  Returns the
-    logits of prefill's last position and of every decode step, the
-    forward's logits at the same positions, each (gen_len + 1, V), and the
-    tokens the forward saw."""
+def teacher_forced(params, cfg, prompt, n_steps, given=None):
+    """Prefill ``prompt`` (B, S), then ``n_steps`` decode steps, each fed
+    the greedy choice of the step before or, where ``given`` (B, n_steps)
+    is passed, those tokens; then one fresh forward over the prompt and
+    the tokens fed.  Returns the logits of prefill's last position and of
+    every step and the forward's at the same positions, each (B, n_steps +
+    1, V) float32, and the tokens the forward saw."""
     import torch
 
     from repro_torch.models.transformer import (decode_step, pad_cache,
                                                 prefill)
+    S = prompt.shape[1]
     with torch.no_grad():
         last, caches, pos = prefill(params, {"tokens": prompt}, cfg)
-        caches = pad_cache(caches, cfg, extra=gen_len)
-        logits, toks = [last], [last.argmax(-1)[:, None]]
-        for i in range(gen_len):
-            lg, caches = decode_step(params, toks[-1], caches, pos + i, cfg)
-            logits.append(lg)
-            toks.append(lg.argmax(-1)[:, None])
-    full = torch.cat([prompt] + toks[:-1], dim=1)
-    return (torch.cat(logits, dim=0),
-            forward_logits(params, cfg, full, prompt.shape[1] - 1), full)
+        caches = pad_cache(caches, cfg, extra=n_steps)
+        logits, fed = [last], []
+        for i in range(n_steps):
+            fed.append(last.argmax(-1)[:, None] if given is None
+                       else given[:, i:i + 1])
+            last, caches = decode_step(params, fed[-1], caches, pos + i, cfg)
+            logits.append(last)
+    full = torch.cat([prompt] + fed, dim=1)
+    return (torch.stack(logits, dim=1).float(),
+            batch_logits(params, cfg, {"tokens": full}, slice(S - 1, None)),
+            full)
 
 
 #: decode logits vs a fresh forward: (rtol, atol as a fraction of the
@@ -1470,58 +1594,101 @@ def ulp_nudge(tree, seed=0):
     return tree_map(nudge, tree)
 
 
-def nudge_sensitivity(params, cfg, tokens, start, seed=0) -> tuple:
-    """How far a fresh forward's logits move when every weight moves by
-    -1, 0 or +1 float32 ulp, drawn entry by entry: the model's own
-    conditioning at these weights, against which a difference of two
-    routes in float32 is read.  Returns (max abs change as a fraction of
-    the largest |logit|, norm rel change)."""
-    ref = forward_logits(params, cfg, tokens, start)
-    moved = forward_logits(ulp_nudge(params, seed), cfg, tokens, start)
+def nudge_sensitivity(params, cfg, batch, positions, ref, seed=0) -> tuple:
+    """How far a fresh forward's logits at ``positions`` of ``batch`` move
+    from ``ref`` (the same forward's) when every weight moves by -1, 0 or
+    +1 float32 ulp, drawn entry by entry: the model's own conditioning at
+    these weights, against which a difference of two routes in float32 is
+    read.  Returns (max abs change as a fraction of the largest |logit|,
+    norm rel change)."""
+    moved = batch_logits(ulp_nudge(params, seed), cfg, batch, positions)
     return (float((moved - ref).abs().max() / ref.abs().max()),
-            float((moved - ref).norm() / ref.norm()))
+            _rel_norm(moved, ref))
 
 
-def tf_check(tag, params, cfg_of, prompt, gen_len, tol) -> dict:
+def _rel_norm(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+#: a float32 check's bound must be at least this many times what a
+#: one-ulp nudge of every weight moves the fresh forward
+#: (``nudge_sensitivity``), in norm and elementwise: where the model's own
+#: conditioning fills more of it, the bound cannot tell a wrong route from
+#: a right one, and the check fails rather than widen
+NUDGE_MARGIN = 2.0
+
+
+def f32_route_check(tag, got, ref, tol, nudge=None) -> tuple:
+    """Float32 logits ``got`` of one route against ``ref``, a fresh
+    forward's at the same positions: within ``tol`` = (rtol, atol as a
+    fraction of the largest |logit|) elementwise and rtol in norm, with the
+    same greedy choices everywhere.  Given ``nudge``
+    (``nudge_sensitivity``'s pair), the weights must first be conditioned
+    to ``NUDGE_MARGIN`` times inside ``tol``.  Returns (max abs err, norm
+    rel err)."""
+    rtol, frac = tol
+    if nudge is not None and (NUDGE_MARGIN * nudge[0] > frac or
+                              NUDGE_MARGIN * nudge[1] > rtol):
+        raise AssertionError(
+            f"{tag}: a one-ulp nudge of every weight moves the float32 "
+            f"forward by {nudge[0]:.3e} of the largest |logit| and "
+            f"{nudge[1]:.3e} in norm, over 1/{NUDGE_MARGIN} of the bound "
+            f"(atol {frac}, rtol {rtol}): the weights are not conditioned "
+            f"well enough to compare two routes")
+    err = check_close(f"{tag} float32", got, ref, rtol,
+                      frac * float(ref.abs().max()))
+    rel = _rel_norm(got, ref)
+    same = (got.argmax(-1) == ref.argmax(-1)).flatten().tolist()
+    if rel > rtol or not all(same):
+        raise AssertionError(f"{tag} float32: norm rel err {rel} (bound "
+                             f"{rtol}), greedy choices equal {same}")
+    return err, rel
+
+
+def tf_check(tag, params, cfg_of, prompt, gen_len, tol,
+             nudge=False) -> dict:
     """Teacher-forced decode against a fresh forward, in bfloat16 and
     float32 (``cfg_of(dtype)``), each within ``tol[dtype]`` = (rtol, atol
     as a fraction of the largest |logit|) elementwise and rtol in norm;
-    float32 must make the same greedy choices.  Returns the errors."""
+    float32 (``f32_route_check``) must make the same greedy choices, and
+    with ``nudge`` its weights must be conditioned as that says.  Returns
+    the errors."""
     S = prompt.shape[1]
     errs = {}
     for dtype in ("bfloat16", "float32"):
         got, ref, full = teacher_forced(params, cfg_of(dtype), prompt,
                                         gen_len)
         rtol, frac = tol[dtype]
-        atol = frac * float(ref.abs().max())
-        rel = float((got - ref).norm() / ref.norm())
-        err = float((got - ref).abs().max())
-        same = (got.argmax(-1) == ref.argmax(-1)).tolist()
-        log(f"[{tag}] teacher-forced {dtype}, prompt {S}: {got.shape[0]} "
-            f"positions of {got.shape[1]} logits, max abs err {err:.4g} "
-            f"(rtol {rtol}, atol {atol:.3g} = {frac} x max|logit| "
-            f"{float(ref.abs().max()):.4g}), norm rel err {rel:.3e} (bound "
-            f"{rtol}); argmax equal at {sum(same)} of {len(same)}")
-        check_close(f"{tag} teacher-forced {dtype}, prompt {S}", got, ref,
-                    rtol, atol)
+        scale = float(ref.abs().max())
+        what = f"{tag} teacher-forced {dtype}, prompt {S}"
+        sens = ""
+        if dtype == "float32":
+            n = (nudge_sensitivity(params, cfg_of(dtype), {"tokens": full},
+                                   slice(S - 1, None), ref)
+                 if nudge else None)
+            err, rel = f32_route_check(what, got, ref, tol[dtype], n)
+            if n:
+                sens = (f"; a one-ulp nudge of every weight moves the "
+                        f"forward by {n[0]:.3e} of the largest |logit|, "
+                        f"{n[1]:.3e} in norm (at most 1/{NUDGE_MARGIN} of "
+                        f"the bound)")
+        else:
+            err = check_close(what, got, ref, rtol, frac * scale)
+            rel = _rel_norm(got, ref)
+        same = (got.argmax(-1) == ref.argmax(-1)).flatten().tolist()
+        log(f"[{tag}] teacher-forced {dtype}, prompt {S}: {got.shape[1]} "
+            f"positions of {got.shape[2]} logits, max abs err {err:.4g} "
+            f"(rtol {rtol}, atol {frac * scale:.3g} = {frac} x max|logit| "
+            f"{scale:.4g}), norm rel err {rel:.3e} (bound {rtol}); argmax "
+            f"equal at {sum(same)} of {len(same)}{sens}")
         if rel > rtol:
-            raise AssertionError(f"{tag} teacher-forced {dtype}, prompt "
-                                 f"{S}: norm rel err {rel}")
-        if dtype == "float32" and not all(same):
-            raise AssertionError(f"{tag} float32 greedy choices differ, "
-                                 f"prompt {S}: {same}")
-        if dtype == "float32" and tag == "rg":
-            frac_n, rel_n = nudge_sensitivity(params, cfg_of(dtype), full,
-                                              S - 1)
-            log(f"[{tag}] float32 forward under a one-ulp nudge of every "
-                f"weight, prompt {S}: max abs change {frac_n:.3e} of the "
-                f"largest |logit|, norm rel {rel_n:.3e} (decode vs forward:"
-                f" {err / float(ref.abs().max()):.3e} and {rel:.3e})")
+            raise AssertionError(f"{what}: norm rel err {rel}")
         if dtype == "bfloat16":
             # both bf16 routes against float32 on the same tokens
-            exact = forward_logits(params, cfg_of("float32"), full, S - 1)
-            d_dec = float((got - exact).norm() / exact.norm())
-            d_fwd = float((ref - exact).norm() / exact.norm())
+            exact = batch_logits(params, cfg_of("float32"),
+                                 {"tokens": full}, slice(S - 1, None))
+            d_dec = _rel_norm(got, exact)
+            d_fwd = _rel_norm(ref, exact)
             log(f"[{tag}] bf16 vs float32 on the same tokens, norm rel err:"
                 f" decode {d_dec:.3e}, forward {d_fwd:.3e} (ratio "
                 f"{d_dec / d_fwd:.4f}, bound {BF16_AS_CLOSE})")
@@ -1735,7 +1902,7 @@ def rg_serve_phase() -> dict:
             0, cfg.vocab, (1, n))).cuda()
         tf[n] = tf_check("rg", params,
                          lambda dt: rg_config(compute_dtype=dt), prompt,
-                         SERVE["gen_len"], RG_TF_TOL)
+                         SERVE["gen_len"], RG_TF_TOL, nudge=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1786,7 +1953,438 @@ def rg_serve_phase() -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 11. fleet: the batched fleet engines and their telemetry
+# 11-12. moe and zoo: granite-moe-3b-a800m served, the other new configs
+# --------------------------------------------------------------------- #
+def granite_config(**over):
+    from repro_torch.configs.granite_moe_3b_a800m import FULL
+    return dataclasses.replace(FULL, **over)
+
+
+def conditioned(params, cfg):
+    """``params`` with each stacked matrix scaled, in place, to the std of
+    its own fan-in, ``scale/sqrt(d_in)``.  The reference's init takes a
+    stacked leaf's fan-in from its first axis, the layer count R
+    (``models/common.py::_init_one``), so at R = 32 a (1536, 1536) query
+    matrix has std 0.18 and at R = 2 a (5120, 5120) one 0.71: attention
+    saturates towards an argmax, and a one-ulp nudge of every weight moves
+    32-layer granite's float32 logits by 90 % in norm on an H100, so no
+    two float32 routes can be held to each other.  Scaled, they can."""
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim.optimizers import tree_leaves
+    for sp, t in zip(spec_leaves(model_specs(cfg)), tree_leaves(params)):
+        if sp.init == "normal" and len(sp.shape) >= 3:
+            t.mul_(math.sqrt(sp.shape[0] / sp.shape[-2]))
+    return params
+
+
+def granite_params(cfg, device):
+    """Random weights of ``cfg`` (granite) from seed 0 on ``device``,
+    ``conditioned``."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    return conditioned(init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device),
+        cfg)
+
+
+def prefill_drops(params, cfg, tokens) -> list:
+    """The share of (token, expert) assignments that one prefill of
+    ``tokens`` drops, in each MoE layer, in layer order: each layer's plan
+    is read as ``moe_ffn`` makes it."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import prefill
+    dispatch_indices = moe.moe_dispatch_indices
+    plans = []
+
+    def recorded(*args, **kw):
+        plan = dispatch_indices(*args, **kw)
+        plans.append(plan.token_slot)
+        return plan
+    with torch.no_grad(), mock.patch.object(moe, "moe_dispatch_indices",
+                                            recorded):
+        prefill(params, {"tokens": tokens}, cfg)
+    drops = [float((t < 0).sum()) / t.numel() for t in plans]
+    del plans
+    torch.cuda.empty_cache()
+    return drops
+
+
+#: the structural check, float32 at capacity 8 (routing equal in prefill,
+#: decode and the fresh forward): rtol in norm and atol as a fraction of
+#: the largest |logit|, ``TF_TOL``'s float32 bounds, the weights
+#: conditioned to ``NUDGE_MARGIN`` times inside them (measured each run)
+MOE_TF_TOL = TF_TOL["float32"]
+#: the dispatch check's FFN output, float32 card vs CPU from the same
+#: plan: the products and the combine sum in other orders (rtol, and atol
+#: as a fraction of the largest |output|)
+MOE_FFN_TOL = (1e-4, 1e-5)
+
+
+def moe_dispatch_check(params, cfg) -> dict:
+    """One MoE layer at full width over ``MOE_DISPATCH_T`` tokens: router
+    logits in float32 from the card, dispatched on the card and on the
+    CPU (slot tokens and validity equal; weights and aux within rtol
+    1e-6), then the float32 FFN on both (within ``MOE_FFN_TOL``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import (moe_capacity, moe_dispatch_indices,
+                                        moe_ffn)
+    from repro_torch.optim.optimizers import tree_map
+    layer = tree_map(lambda t: t[0], params["groups"][0]["l0"]["ffn"])
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, MOE_DISPATCH_T, d), generator=gen, device="cuda")
+    logits = x @ layer["router"].float()
+    C = moe_capacity(MOE_DISPATCH_T, k, E, cfg.capacity_factor)
+    card = moe_dispatch_indices(logits, k, C)
+    cpu = moe_dispatch_indices(logits.cpu(), k, C)
+    for name in ("slot_token", "slot_valid", "token_slot"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"moe dispatch {name} differs card vs CPU")
+    e_w = check_close("moe dispatch slot_weight", card.slot_weight.cpu(),
+                      cpu.slot_weight, 1e-6, 0.0)
+    aux_c, aux_h = float(card.aux_loss), float(cpu.aux_loss)
+    if abs(aux_c - aux_h) > 1e-6 * abs(aux_h):
+        raise AssertionError(f"moe aux card {aux_c}, CPU {aux_h}")
+    dropped = int((card.token_slot < 0).sum())
+    p_cuda = {n: layer[n].float() for n in ("router", "wg", "wu", "wd")}
+    p_cpu = tree_map(lambda t: t.cpu(), p_cuda)
+    out_c, _ = moe_ffn(x, p_cuda, top_k=k, capacity_factor=cfg.
+                       capacity_factor, act=F.silu)
+    out_h, _ = moe_ffn(x.cpu(), p_cpu, top_k=k,
+                       capacity_factor=cfg.capacity_factor, act=F.silu)
+    rtol, frac = MOE_FFN_TOL
+    e_o = check_close("moe FFN card vs CPU", out_c.cpu(), out_h, rtol,
+                      frac * float(out_h.abs().max()))
+    log(f"[moe] dispatch of one layer (d {d}, {E} experts, top-{k}) over "
+        f"{MOE_DISPATCH_T} tokens at capacity {C}: slot tokens, validity and"
+        f" each assignment's slot equal card vs CPU; weights max abs err "
+        f"{e_w:.3e} (rtol 1e-6); aux card {aux_c!r} CPU {aux_h!r}; "
+        f"{dropped} of {MOE_DISPATCH_T * k} assignments dropped "
+        f"({dropped / (MOE_DISPATCH_T * k):.2%}); FFN float32 card vs CPU "
+        f"max abs err {e_o:.3e} (rtol {rtol}, atol {frac} x max|out| "
+        f"{float(out_h.abs().max()):.4g})")
+    del x, logits, p_cuda, out_c
+    torch.cuda.empty_cache()
+    return {"weights_err": e_w, "aux": (aux_c, aux_h), "ffn_err": e_o,
+            "capacity": C, "dropped": dropped}
+
+
+def moe_serve_phase() -> dict:
+    """granite-moe-3b-a800m served at full size through ``serve()``, the
+    share dropped per layer, the structural check (float32, capacity 8),
+    the dispatch check, the REDUCED model card vs CPU and the REDUCED
+    serve loop on both.  Returns the path's launches, timings, parameter
+    count, peak memory and the checks' numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.granite_moe_3b_a800m import REDUCED
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.transformer import (decode_step, pad_cache,
+                                                prefill)
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = granite_config()
+    params = granite_params(cfg, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    T_pre = SERVE["batch"] * SERVE["prompt_len"]
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads and {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.top_k}, capacity factor {cfg.capacity_factor} ("
+        f"{moe_capacity(T_pre, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+        f" slots an expert at prefill, "
+        f"{moe_capacity(SERVE['batch'], cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"  # noqa: E501
+        f" at decode), vocab {cfg.vocab}, compute {cfg.compute_dtype}; "
+        f"{n_params} parameters ({4 * n_params / 1e9:.2f} GB float32); "
+        f"serve {SERVE}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the path: counts zeroed just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve(cfg, params, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    windowed = windowed_launches()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = no_launches(flash_attention_fwd=cfg.n_layers * res["prefills"])
+    pre = np.asarray(res["prefill_ms"])
+    dec = np.asarray(res["decode_ms"]) / SERVE["gen_len"]
+    log(f"[moe] {SERVE['slots']} slots in {wall:.2f} s: {res['prefills']} "
+        f"prefills, served {np.round(res['served'], 2).tolist()}, Jain "
+        f"{res['jain']:.4f}; launches {launches} (the path implies {want}: "
+        f"{cfg.n_layers} attention forwards a prefill); peak device memory "
+        f"{peak} bytes ({peak / 1e9:.2f} GB)")
+    log(f"[moe] ms per prefill (batch <= {SERVE['batch']} x "
+        f"{SERVE['prompt_len']} tokens): median {np.median(pre):.2f}, min "
+        f"{pre.min():.2f}, max {pre.max():.2f}; ms per decode step: median "
+        f"{np.median(dec):.3f}, min {dec.min():.3f}, max {dec.max():.3f}; "
+        f"schedule ms per slot median {np.median(res['schedule_ms']):.3f}")
+    if res["prefills"] == 0 or launches != want or windowed:
+        raise AssertionError(f"launch counts {launches}, {windowed} "
+                             f"windowed; the path implies {want}, none "
+                             f"windowed")
+    if not 0.0 < res["jain"] <= 1.0 or res["served"].sum() <= 0:
+        raise AssertionError(f"served {res['served']}, Jain {res['jain']}")
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]))).cuda()
+    drops = prefill_drops(params, cfg, toks)
+    log(f"[moe] share of prefill assignments dropped at capacity "
+        f"{cfg.capacity_factor}, batch {SERVE['batch']} x "
+        f"{SERVE['prompt_len']}, layer by layer: "
+        f"{[round(x, 4) for x in drops]} (mean {np.mean(drops):.4f})")
+
+    # structural check: float32, capacity 8, decode == a fresh forward
+    cfg32 = granite_config(compute_dtype="float32", capacity_factor=8.0)
+    tf_toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (MOE_TF_B, MOE_TF_PROMPT + MOE_TF_STEPS))).cuda()
+    got, ref, full = teacher_forced(params, cfg32,
+                                    tf_toks[:, :MOE_TF_PROMPT], MOE_TF_STEPS,
+                                    given=tf_toks[:, MOE_TF_PROMPT:])
+    nudge = nudge_sensitivity(params, cfg32, {"tokens": full},
+                              slice(MOE_TF_PROMPT - 1, None), ref)
+    torch.cuda.empty_cache()
+    tf_err, tf_rel = f32_route_check("moe structural", got, ref, MOE_TF_TOL,
+                                     nudge)
+    log(f"[moe] structural check, float32 at capacity 8.0 (nothing "
+        f"dropped): prefill {MOE_TF_B} x {MOE_TF_PROMPT} + "
+        f"{MOE_TF_STEPS} teacher-forced decode steps vs a fresh forward: "
+        f"max abs err {tf_err:.4g} (atol {MOE_TF_TOL[1]} x max|logit| "
+        f"{float(ref.abs().max()):.4g}), norm rel err {tf_rel:.3e} (bound "
+        f"{MOE_TF_TOL[0]}); argmax equal; a one-ulp nudge of every weight "
+        f"moves the forward by {nudge[0]:.3e} of the largest |logit|, "
+        f"{nudge[1]:.3e} in norm (at most 1/{NUDGE_MARGIN} of the bound)")
+    del got, ref, full
+    dispatch = moe_dispatch_check(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # REDUCED, float32 at capacity 8: the model on the card vs the CPU
+    red = dataclasses.replace(REDUCED, compute_dtype="float32",
+                              capacity_factor=8.0)
+    p_cpu = granite_params(red, "cpu")
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    rtoks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, red.vocab, (2, 104)))
+    out = []
+    for p, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        last, caches, pos = prefill(p, {"tokens": rtoks[:, :100].to(dev)},
+                                    red)
+        steps = [last]
+        caches = pad_cache(caches, red, extra=4)
+        for i in range(4):
+            lg, caches = decode_step(p, rtoks[:, 100 + i:101 + i].to(dev),
+                                     caches, pos + i, red)
+            steps.append(lg)
+        out.append(torch.stack(steps).cpu())
+    e_l = check_close("moe REDUCED logits card vs CPU", out[0], out[1],
+                      1e-4, 1e-4)
+    log(f"[moe] REDUCED float32 at capacity 8, prefill 100 tokens + 4 "
+        f"decode steps, card vs CPU: logits max abs err {e_l:.3e} (rtol "
+        f"1e-4)")
+
+    # REDUCED serve loop (its defaults, bf16) on the card and on the CPU
+    red = REDUCED
+    t1 = time.perf_counter()
+    card = serve(red, granite_params(red, "cuda"), device="cuda")
+    t2 = time.perf_counter()
+    cpu = serve(red, granite_params(red, "cpu"), device="cpu")
+    for key in ("admitted", "scheduled", "served"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"moe REDUCED serve {key}: card "
+                                 f"{card[key]}, CPU {cpu[key]}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[moe] REDUCED serve loop (40 slots): card {t2 - t1:.1f} s, CPU "
+        f"{time.perf_counter() - t2:.1f} s; equal admissions, schedules and "
+        f"served counts {np.round(card['served'], 2).tolist()}")
+    log(f"[moe] phase passed in {seconds:.1f} s")
+    return {"launches": launches, "windowed": windowed, "res": res,
+            "peak": peak, "n_params": n_params, "drops": drops,
+            "tf": (tf_err, tf_rel) + nudge,
+            "dispatch": dispatch, "seconds": seconds}
+
+
+#: the zoo's float32 route, decode (or a batch of two) against a fresh
+#: forward: ``TF_TOL``'s float32 bounds (rtol in norm, atol as a fraction
+#: of the largest |logit|), the weights conditioned to ``NUDGE_MARGIN``
+#: times inside them (measured each run; not for llama4, whose weights
+#: are bfloat16 and do not fit twice)
+ZOO_F32_TOL = TF_TOL["float32"]
+#: the bf16 route against the float32 forward on the same inputs, in
+#: norm: ``RG_TF_TOL``'s bf16 bound
+ZOO_BF16_TOL = RG_TF_TOL["bfloat16"][0]
+
+
+def zoo_config(arch, layers, **over):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        over = dict(n_layers=layers, **over)
+    return dataclasses.replace(cfg, **over)
+
+
+def _in_type(batch, dtype):
+    return {k: v.to(dtype) if v.is_floating_point() and k != "weights"
+            else v for k, v in batch.items()}
+
+
+def zoo_one(arch, layers) -> dict:
+    """One config of the zoo at full width (``layers`` kept): a bf16
+    prefill of ZOO_B x ZOO_S and one decode step (an encoder: one
+    forward), then the float32 route, each held as ``ZOO_*_TOL`` say."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.batches import synthetic_batch
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                pad_cache, prefill)
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = zoo_config(arch, layers)
+    over32 = dict(compute_dtype="float32")
+    if cfg.n_experts:
+        over32["capacity_factor"] = 8.0      # the structural check
+    cfg32 = zoo_config(arch, layers, **over32)
+    n_attn = sum(m in ("attn", "local") for m, _ in cfg.layer_kinds())
+    n_local = sum(m == "local" for m, _ in cfg.layer_kinds()) \
+        if cfg.window else 0
+    decoder = cfg.frontend != "audio"
+    torch.cuda.reset_peak_memory_stats()
+    params = conditioned(init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    # float32 inputs; the bf16 route rounds them as synthetic_batch does
+    full = synthetic_batch(cfg32, ZOO_B, ZOO_S + decoder, "prefill", seed=1,
+                           device="cuda")
+    dt = getattr(torch, cfg.compute_dtype)
+    S = ZOO_S
+    if decoder:
+        prompt = dict(full, tokens=full["tokens"][:, :-1])
+        nxt = full["tokens"][:, -1:]
+    out = {"arch": arch, "layers": cfg.n_layers, "n_params": n_params,
+           "param_bytes": n_bytes}
+
+    # ---- bf16: counts zeroed just before, read just after ----
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    if decoder:
+        last_b, caches, pos = prefill(params, _in_type(prompt, dt), cfg)
+    else:
+        all_b = batch_logits(params, cfg, _in_type(full, dt), slice(None))
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+    out["launches"] = read_counts()
+    out["windowed"] = windowed_launches()
+    # ---------------------------------------------------------------------
+    want = no_launches(flash_attention_fwd=n_attn)
+    if out["launches"] != want or out["windowed"] != n_local:
+        raise AssertionError(f"zoo {arch} launches {out['launches']}, "
+                             f"{out['windowed']} windowed; one prefill "
+                             f"implies {want}, {n_local} windowed")
+    if decoder:
+        if pos != S:
+            raise AssertionError(f"zoo {arch}: prefill pos {pos}, want {S}")
+        caches = pad_cache(caches, cfg, extra=1)
+        t2 = time.perf_counter()
+        step_b, _ = decode_step(params, nxt, caches, pos, cfg)
+        torch.cuda.synchronize()
+        out["decode_ms"] = (time.perf_counter() - t2) * 1e3
+        del caches
+        got_b = torch.stack([last_b, step_b], dim=1)
+    else:
+        got_b = all_b
+    if not bool(torch.isfinite(got_b).all()):
+        raise AssertionError(f"zoo {arch}: bf16 logits not finite")
+
+    # ---- float32 route ----
+    positions = [S - 1, S] if decoder else slice(None)
+    fresh = batch_logits(params, cfg32, full, positions)
+    if decoder:
+        last_f, caches, pos = prefill(params, prompt, cfg32)
+        caches = pad_cache(caches, cfg32, extra=1)
+        step_f, _ = decode_step(params, nxt, caches, pos, cfg32)
+        del caches
+        got_f = torch.stack([last_f, step_f], dim=1)
+        what = "prefill's last position and one decode step vs a fresh forward"
+    else:
+        got_f = torch.cat([batch_logits(params, cfg32,
+                                        {k: v[i:i + 1] for k, v in
+                                         full.items()}, slice(None))
+                           for i in range(ZOO_B)])
+        what = f"a batch of {ZOO_B} vs each sequence alone"
+    nudge = None
+    if params["embed"].dtype == torch.float32:
+        nudge = out["nudge"] = nudge_sensitivity(params, cfg32, full,
+                                                 positions, fresh)
+    e32, rel32 = f32_route_check(f"zoo {arch}", got_f, fresh, ZOO_F32_TOL,
+                                 nudge)
+    # bf16 against the float32 forward (llama4: the decode step only, its
+    # bf16 prefill drops tokens at capacity 1.25 by design)
+    cols = slice(1, 2) if (decoder and cfg.n_experts) else slice(None)
+    rel16 = _rel_norm(got_b[:, cols], fresh[:, cols])
+    if rel16 > ZOO_BF16_TOL:
+        raise AssertionError(f"zoo {arch} bf16 vs float32: norm rel "
+                             f"{rel16} (bound {ZOO_BF16_TOL})")
+    out.update(f32_err=e32, f32_rel=rel32,
+               bf16_rel=rel16, peak=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t0)
+    sens = (f"; a one-ulp nudge of every weight moves the float32 forward "
+            f"by {nudge[0]:.3e} of the largest |logit|, {nudge[1]:.3e} in "
+            f"norm (at most 1/{NUDGE_MARGIN} of the bound)" if nudge else
+            "; no nudge (bfloat16 weights)")
+    rtol, frac = ZOO_F32_TOL
+    log(f"[zoo] {arch}: {cfg.n_layers} of {zoo_config(arch, None).n_layers}"
+        f" layers, "
+        f"{n_params} parameters ({n_bytes / 1e9:.2f} GB {cfg.param_dtype})"
+        f", {n_attn} attention layers (D {cfg.head_dim}, G "
+        f"{cfg.group_size}, causal {cfg.causal}, window {cfg.window}); bf16 "
+        f"{'prefill' if decoder else 'forward'} of {ZOO_B} x {S}: "
+        f"{out['prefill_ms']:.1f} ms, launches {out['launches']} "
+        f"({out['windowed']} of them windowed)"
+        + (f", decode step {out['decode_ms']:.1f} ms" if decoder else "")
+        + f"; float32 ({what}): max abs err {e32:.3e} (atol {frac} x "
+        f"max|logit| {float(fresh.abs().max()):.4g}), norm rel {rel32:.3e} "
+        f"(bound {rtol}), argmax equal{sens}; bf16 vs float32 norm rel "
+        f"{rel16:.4f} "
+        f"(bound {ZOO_BF16_TOL}); peak {out['peak'] / 1e9:.2f} GB; "
+        f"{out['seconds']:.1f} s")
+    del params, full, fresh, got_f, got_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase() -> dict:
+    """Every other new config at full width, its depth cut as ``ZOO``
+    says; returns each one's numbers by arch."""
+    t0 = time.perf_counter()
+    out = {arch: zoo_one(arch, layers) for arch, layers in ZOO}
+    log(f"[zoo] phase passed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# 13. fleet: the batched fleet engines and their telemetry
 # --------------------------------------------------------------------- #
 #: fleet_scale.py::FULL: 64 seeds x 3 epochs; MEGAFLEET_SMOKE: 1,000 lanes
 FLEET_SEEDS, FLEET_EPOCHS, MEGAFLEET_LANES = 64, 3, 1000
@@ -2157,7 +2755,7 @@ def fleet_phase(smi: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 12. device: the device-resident epoch tail
+# 14. device: the device-resident epoch tail
 # --------------------------------------------------------------------- #
 class _kept_fleets:
     """Within the block, keep every ``BatchedFleet`` that runs (its
@@ -2271,7 +2869,7 @@ def device_engine_phase(smi: str, fleet: dict) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 13. soak: the Lyapunov soak and its policy search
+# 15. soak: the Lyapunov soak and its policy search
 # --------------------------------------------------------------------- #
 SOAK_SLOTS = 2000
 #: the committed 1M-slot run of the reference's frontier benchmark
@@ -2413,7 +3011,7 @@ def soak_phase(smi: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 14. times
+# 16. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -2472,12 +3070,13 @@ def coded_reduce_times(n_slots, D, reps=50) -> dict:
     return row
 
 
-def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
+def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
+                causal=True) -> dict:
     """The kernel's forward (and backward, and forward+backward) at
-    ``shape``, causal, beside the plain version,
-    ``scaled_dot_product_attention`` (timed as a yardstick only) and the
-    bound.  A window is timed only where it is no shorter than the
-    sequence, so that the library's causal call computes the same."""
+    ``shape`` beside the plain version, ``scaled_dot_product_attention``
+    (timed as a yardstick only) and the bound.  A window is timed only
+    where it is no shorter than the sequence, so that the library's call
+    computes the same."""
     import torch
     import torch.nn.functional as F
 
@@ -2488,7 +3087,7 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
     B, S, KV, G, D = shape
     H = KV * G
     assert not window or window >= S
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     q, k, v, do = _fa_inputs(5, shape, dtype)
     counts = read_counts()
     out, lse = flash_attention_fwd(q, k, v, **kw)
@@ -2502,8 +3101,8 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
         .reshape(B, S, H, D).transpose(1, 2).contiguous()
         for x in (q, k[:, :, :, None], v[:, :, :, None], do)]
     t["sdpa_fwd_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
-        30)
+        lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                               is_causal=causal), 30)
     if backward:
         t["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
             q, k, v, out, lse, do), 20)
@@ -2518,14 +3117,16 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
         t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
         lib = [x.detach().clone().requires_grad_(True)
                for x in (qh, kh, vh)]
-        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=causal)
         t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
             lib_out, lib, doh, retain_graph=True), 20)
     set_counts(counts)                   # these launches are not a path's
 
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     elt = q.element_size()
-    flops_fwd = B * H * S * (S + 1) // 2 * 4 * D       # causal triangle
+    # the visible pairs: the causal triangle, or every pair
+    flops_fwd = (B * H * S * (S + 1) // 2 if causal else B * H * S * S) \
+        * 4 * D
     flops_bwd = 2.5 * flops_fwd                        # 5 products, not 2
     bytes_fwd = (2 * B * S * H * D + 2 * B * S * KV * D) * elt + 4 * B * H * S
     bytes_bwd = (4 * B * S * H * D + 4 * B * S * KV * D) * elt + \
@@ -2537,8 +3138,8 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True) -> dict:
         t[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes \
             else "bytes"
         t[f"{name}_flops"] = flops
-    msg = (f"[times] flash_attention {shape} {str(dtype)[6:]} causal "
-           f"window={window}: forward {t['fwd_ms']:.4f} ms (plain "
+    msg = (f"[times] flash_attention {shape} {str(dtype)[6:]} causal="
+           f"{causal} window={window}: forward {t['fwd_ms']:.4f} ms (plain "
            f"{t['plain_fwd_ms']:.4f}, sdpa {t['sdpa_fwd_ms']:.4f}, bound "
            f"{t['fwd_bound_ms']:.4f} by {t['fwd_bound_by']}: "
            f"{flops_fwd / 1e9:.1f} GFLOP, "
@@ -2644,7 +3245,8 @@ def rglru_times() -> dict:
 #: their names, then the matrix products, then the rest
 SERVE_FAMILIES = {"rwkv6-1.6b": {"wkv": "wkv_fwd"},
                   "recurrentgemma-2b": {"rglru": "rglru_scan_",
-                                        "flash_attention": "fa_fwd"}}
+                                        "flash_attention": "fa_fwd"},
+                  "granite-moe-3b-a800m": {"flash_attention": "fa_fwd"}}
 
 
 def serve_profile(cfg, params, n_decode=4) -> None:
@@ -2659,12 +3261,15 @@ def serve_profile(cfg, params, n_decode=4) -> None:
     from repro_torch.models.transformer import (decode_step, model_specs,
                                                 pad_cache, prefill)
     # weights of the layers' matrix products (2-D w*, not the mixes mu or
-    # the per-head gate blocks), over every group's layers
+    # the per-head gate blocks), over every group's layers; of an expert
+    # stack (layers, E, a, b), the top_k experts a token runs
     mm_params = sum(
-        math.prod(sp.shape) for group in model_specs(cfg)["groups"]
+        math.prod(sp.shape) if len(sp.shape) == 3 else
+        sp.shape[0] * cfg.top_k * sp.shape[2] * sp.shape[3]
+        for group in model_specs(cfg)["groups"]
         for unit in group.values() for part in unit.values()
         for key, sp in part.items() if key.startswith("w") and
-        len(sp.shape) == 3)
+        len(sp.shape) in (3, 4) and (len(sp.shape) == 3 or "router" in part))
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"]))).cuda()
     counts = read_counts()
@@ -2868,6 +3473,52 @@ def lm_shard_profile():
     torch.cuda.empty_cache()
 
 
+def zoo_times(moe_out, zoo_out, zoo_fa_errs) -> list:
+    """The attention forward at the granite path's shape and at each zoo
+    shape, beside its plain version, ``sdpa`` and the bound; a profile of
+    one granite prefill and its decode steps.  Returns the kernel rows,
+    each with the launches counted on its archs' paths (``ZOO_FA_PATHS``):
+    the windowed ones where the row has a window, the others where not."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    src = "src/repro_torch/kernels"
+    paths = dict(zoo_out, **{"granite-moe-3b-a800m": moe_out})
+
+    def launches(archs, window):
+        n = 0
+        for arch in archs:
+            total = paths[arch]["launches"]["flash_attention_fwd"]
+            windowed = paths[arch]["windowed"]
+            n += windowed if window else total - windowed
+        return n
+
+    fa_g = flash_times(torch.bfloat16, GRANITE_FA_PATH, backward=False)
+    ml = moe_out["launches"]["flash_attention_fwd"]
+    n_pre = moe_out["res"]["prefills"]
+    serve_profile(granite_config(), granite_params(granite_config(), "cuda"))
+    log(f"[times] moe attention per prefill, from the kernel's timed cost x "
+        f"its launches: {ml * fa_g['fwd_ms'] / n_pre:.3f} ms of "
+        f"{float(np.median(moe_out['res']['prefill_ms'])):.2f} ms")
+    rows = []
+    for tag, name, shape, causal, window, archs in ZOO_FA_PATHS:
+        t = fa_g if tag == "granite" else flash_times(
+            torch.bfloat16, shape, window, backward=False, causal=causal)
+        rows.append({
+            "name": f"flash_attention_fwd_{name}", "route": "cuda",
+            "kernel_route": kernel_route(torch.bfloat16, shape[4]),
+            "shape": list(shape),
+            "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:88",
+            "launches": launches(archs, window),
+            "max_abs_err": zoo_fa_errs[tag], "ms": t["fwd_ms"],
+            "plain_ms": t["plain_fwd_ms"], "bound_ms": t["fwd_bound_ms"],
+            "bound_by": t["fwd_bound_by"], "library_ms": t["sdpa_fwd_ms"]})
+    return rows
+
+
 def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
                 rg_errs, fel, lmt) -> list:
     from collections import Counter
@@ -3031,6 +3682,7 @@ def main() -> int:
     fa_errs = flash_kernel_phase()
     wkv_err = wkv_kernel_phase()
     rg_errs = {"scan": rglru_kernel_phase(), "fa256": flash256_kernel_phase()}
+    zoo_fa_errs = zoo_kernel_phase()
     mlp = mlp_phase()
     lm = lm_phase()
     tiny_phase()
@@ -3038,12 +3690,15 @@ def main() -> int:
     lmt = lm_train_phase()
     served = serve_phase()
     rg_out = rg_serve_phase()
+    moe_out = moe_serve_phase()
+    zoo_out = zoo_phase()
     fleet = fleet_phase(smi)
     device_engine_phase(smi, fleet)
     del fleet
     soak_phase(smi)
     kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
                           rg_errs, fel, lmt)
+    kernels += zoo_times(moe_out, zoo_out, zoo_fa_errs)
     import torch
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)

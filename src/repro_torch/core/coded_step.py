@@ -104,11 +104,16 @@ def slot_batch(dataset, epoch: int, plan: SlotPlan, device,
 # --------------------------------------------------------------------- #
 def _value_and_grad(loss_fn: Callable) -> Callable:
     """``(params, *args) -> (loss, grads)`` by autograd, leaving the
-    caller's tensors untouched."""
+    caller's tensors untouched.  A leaf the loss does not use gets a zero
+    gradient, as under ``jax.grad`` (an audio config never reads its
+    token embedding)."""
     def fn(params, *args):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(live, *args)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(live, grads)
     return fn
 

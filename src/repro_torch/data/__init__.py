@@ -1,5 +1,6 @@
+from .batches import batch_shapes, synthetic_batch
 from .pipeline import (PartitionedDataset, SyntheticClassificationDataset,
                        SyntheticLMDataset)
 
-__all__ = ["PartitionedDataset", "SyntheticClassificationDataset",
-           "SyntheticLMDataset"]
+__all__ = ["batch_shapes", "synthetic_batch", "PartitionedDataset",
+           "SyntheticClassificationDataset", "SyntheticLMDataset"]

@@ -9,7 +9,8 @@ bfloat16 runs on the tensor cores (``wgmma`` fed by TMA), float32 on the
 CUDA cores in full float32.  ``flash_attention.fwd_launches`` and
 ``.bwd_launches`` count the kernels' launches (one forward kernel per
 forward call; the dq and dk/dv kernels of one backward call count once),
-not the CPU path's calls.  The forward takes a head width up to 256, the
+not the CPU path's calls; ``.fwd_windowed_launches`` counts those forward
+launches that had a sliding window.  The forward takes a head width up to 256, the
 backward up to 128 (``csrc/flash_attention.cu`` says why); a wider backward
 on the card raises before any launch.
 """
@@ -133,6 +134,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
             int(window), q.device.index, _stream(q))
     _raise_on(err, "forward")
     flash_attention.fwd_launches += 1
+    if window > 0:
+        flash_attention.fwd_windowed_launches += 1
     return out, lse
 
 
@@ -200,4 +203,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.fwd_launches = 0
+flash_attention.fwd_windowed_launches = 0
 flash_attention.bwd_launches = 0

@@ -14,6 +14,14 @@ The loop is :func:`serve`; :func:`main` is the reference's command line
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
+
+Every token decoder of the registry is served: ``stablelm-1.6b``,
+``qwen3-14b``, ``deepseek-67b``, ``gemma3-12b``, ``rwkv6-1.6b``,
+``recurrentgemma-2b``, and the MoE configs ``granite-moe-3b-a800m`` and
+``llama4-maverick-400b-a17b``.  ``internvl2-26b`` (its prompts start with
+image patches) and ``hubert-xlarge`` (an encoder, no decode step) are
+refused: the loop draws token prompts only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -72,7 +80,14 @@ def serve(cfg: ModelConfig, params, *, clients: int = 6, slots: int = 40,
     card: ``schedule_ms`` per slot, ``prefill_ms`` and ``decode_ms`` per
     batch.
     """
+    if cfg.frontend != "none":
+        raise ValueError(f"serve() draws token prompts; {cfg.name} takes "
+                         f"{cfg.frontend} inputs")
     device = torch.device(device)
+    if device.type == "cuda":
+        # the reference computes float32 products in full float32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
     def sync():
         if device.type == "cuda":

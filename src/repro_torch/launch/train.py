@@ -118,7 +118,13 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
             torch.cuda.synchronize(device)
 
     if cfg.family in ("vlm", "audio"):
-        raise ValueError("train() covers LM families")
+        raise SystemExit("train driver covers LM families; use the smoke "
+                         "tests for frontend-stub archs")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"training the MoE config {cfg.name} through train() is not "
+            f"ported yet: the reference's coded loss drops the balance loss "
+            f"(ROADMAP.md, queue 1 and section 3)")
     opt = adamw(lr=lr, state_dtype=getattr(torch, cfg.opt_state_dtype))
     if params is None:
         params = tfm.init_params(

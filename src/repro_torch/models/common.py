@@ -55,6 +55,18 @@ def spec_template(specs: Any) -> Any:
     return type(specs)(spec_template(x) for x in specs)
 
 
+#: Leaves of more entries than this are drawn a slice of ``_DRAW_SLICE``
+#: entries at a time, so that no float32 copy of the whole leaf exists
+#: (llama4's expert stacks are 5.4 G entries, 21.5 GB in float32).
+_WHOLE_DRAW_MAX, _DRAW_SLICE = 1 << 30, 1 << 28
+
+
+def _draw(n: int, std: float, dtype, generator, device) -> torch.Tensor:
+    x = torch.empty(n, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (x * std).to(dtype)
+
+
 def _init_one(spec: Spec, dtype, generator, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
@@ -64,9 +76,14 @@ def _init_one(spec: Spec, dtype, generator, device) -> torch.Tensor:
     std = spec.scale / math.sqrt(max(fan_in, 1))
     if spec.init == "embed":
         std = 0.02 * spec.scale
-    x = torch.empty(spec.shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * std).to(dtype)
+    n = math.prod(spec.shape)
+    if n <= _WHOLE_DRAW_MAX:
+        return _draw(n, std, dtype, generator, device).reshape(spec.shape)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for i in range(0, n, _DRAW_SLICE):
+        m = min(_DRAW_SLICE, n - i)
+        out[i:i + m] = _draw(m, std, dtype, generator, device)
+    return out.reshape(spec.shape)
 
 
 def init_from_specs(specs: Any, dtype, generator: Optional[torch.Generator],

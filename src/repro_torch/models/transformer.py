@@ -1,12 +1,15 @@
-"""Decoder transformer: dense, RG-LRU and RWKV6 layers, for training and
-serving.
+"""The composable transformer of every config: dense, MoE, hybrid
+(RG-LRU), ssm (RWKV6), vision and audio, for training and serving.
 
-The torch counterpart of ``repro.models.transformer`` for configs whose
-layers are attention (``attn``/``local``) or the RG-LRU recurrent block
-(``rec``) with a dense or gated FFN, or RWKV6 time mix (``rwkv``) with its
-channel mix, on token inputs: such as ``stablelm-1.6b``,
-``recurrentgemma-2b`` and ``rwkv6-1.6b``.  The parameter tree is the
-reference's: ``{"embed", "groups", "final_norm", "lm_head"}``, where
+The torch counterpart of ``repro.models.transformer``: layers of attention
+(``attn``/``local``), the RG-LRU recurrent block (``rec``) or RWKV6 time
+mix (``rwkv``, with its channel mix), each with a dense or gated FFN or the
+mixture-of-experts FFN (``models/moe.py``, with an optional shared
+expert); token inputs, or the vision frontend (projected patches before
+the tokens) or the audio frontend (projected frames plus a sinusoidal
+position table), each through the linear ``adapter``.  The parameter tree
+is the reference's: ``{"adapter", "embed", "groups", "final_norm",
+"lm_head"}``, where
 ``"groups"`` is a list with one dict per repeating layer unit, each leaf
 stacked on a leading layer axis; so :func:`~repro_torch.train.flatten_grads`
 flattens a gradient in ``ravel_pytree``'s order and a decoded vector
@@ -42,6 +45,12 @@ conv state keeps the last ``conv_width - 1`` pre-conv inputs, left-padded
 with zeros for a prompt shorter than that (the reference keeps fewer rows,
 and its decode step then fails on them).
 
+Every entry point sums the MoE balance loss ``aux`` over the layers as
+the reference does, and takes the reference's ``dp_shards`` (tokens are
+routed per shard).  A layer unit's weights are cast to the compute type
+before it runs, but an MoE layer's expert stacks are left as stored:
+``moe_ffn`` casts them a block of experts at a time.
+
 Serving: ``prefill`` (a forward that collects the caches), ``pad_cache``,
 ``init_cache`` and ``decode_step`` (one token, attention over the k/v
 cache in plain PyTorch as the reference's ``decode_attention`` is plain
@@ -50,9 +59,7 @@ jnp; RG-LRU through ``rglru_step``; RWKV6 through ``wkv_step``).  A
 grows it up to the window, so that decode never overwrites a slot still
 inside the window (the reference keeps a prompt shorter than the window
 at its length, and its decode then drops tokens that are in the window).
-
-Not here yet (each raises ``NotImplementedError``): mixture-of-experts
-FFNs and the audio/vision frontends (ROADMAP.md, queue 1).
+An audio (encoder-only) config has no decode step.
 """
 from __future__ import annotations
 
@@ -73,28 +80,17 @@ from repro_torch.models.common import (Spec, activation, apply_rope,
                                        init_from_specs, layer_norm, rms_norm,
                                        rope, spec_leaves,
                                        spec_template)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.rwkv6 import wkv_step
-from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+from repro_torch.optim.optimizers import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["GroupDef", "group_layout", "model_specs", "init_params",
            "params_from_numpy", "forward", "loss_fn", "chunked_ce",
            "prefill", "decode_step", "init_cache", "pad_cache"]
 
-_LATER = "not ported yet: see ROADMAP.md, queue 1"
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"the {cfg.frontend} frontend is {_LATER}")
-    for mixer, ffn in cfg.layer_kinds():
-        if mixer not in ("attn", "local", "rec", "rwkv"):
-            raise NotImplementedError(f"the {mixer!r} mixer is {_LATER}")
-        if ffn != "dense" and mixer != "rwkv":
-            raise NotImplementedError(f"the {ffn!r} FFN is {_LATER}")
 
 
 # ===================================================================== #
@@ -209,6 +205,22 @@ def _ffn_specs(cfg: ModelConfig, ffn: str, mixer: str) -> dict:
                        1.0 / math.sqrt(2 * cfg.n_layers)),
             "wr": Spec((d, d), ("embed", "qkv")),
         }
+    if ffn == "moe":
+        f, E = cfg.d_ff, cfg.n_experts
+        p = {
+            "ln": _norm_spec(cfg),
+            "router": Spec((d, E), ("embed", None)),
+            "wg": Spec((E, d, f), ("experts", "embed", "expert_mlp")),
+            "wu": Spec((E, d, f), ("experts", "embed", "expert_mlp")),
+            "wd": Spec((E, f, d), ("experts", "expert_mlp", "embed"),
+                       "normal", 1.0 / math.sqrt(2 * cfg.n_layers)),
+        }
+        if cfg.shared_expert:
+            p["ws_g"] = Spec((d, f), ("embed", "mlp"))
+            p["ws_u"] = Spec((d, f), ("embed", "mlp"))
+            p["ws_d"] = Spec((f, d), ("mlp", "embed"), "normal",
+                             1.0 / math.sqrt(2 * cfg.n_layers))
+        return p
     f = cfg.ffn_width(ffn)
     p = {"ln": _norm_spec(cfg),
          "wu": Spec((d, f), ("embed", "mlp")),
@@ -229,9 +241,10 @@ def _stack_specs(specs: Any, n: int) -> Any:
 def model_specs(cfg: ModelConfig) -> dict:
     """The parameter tree of ``cfg`` as ``Spec`` leaves (shapes only, no
     allocation), the reference's tree key for key."""
-    _check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab
     specs: dict = {"embed": Spec((V, d), ("vocab", "embed"), "embed")}
+    if cfg.frontend in ("audio", "vision"):
+        specs["adapter"] = Spec((d, d), ("embed", None))
     groups = []
     for g in group_layout(cfg):
         unit = {f"l{j}": {"mixer": _mixer_specs(cfg, mixer),
@@ -453,29 +466,66 @@ def _channel_mix(x, p, cfg: ModelConfig, cache=None):
     return x + out, {"cm": h[:, -1].float()}
 
 
-def _ffn_apply(x, p, cfg: ModelConfig):
+def _ffn_apply(x, p, cfg: ModelConfig, ffn: str, dp_shards: int):
+    """A dense, gated or MoE FFN; returns ``(x, aux)``, aux the MoE
+    balance loss (None for the others: no zero tensor, no launch)."""
     act = activation(cfg.act)
     h = _norm(x, p["ln"], cfg)
+    if ffn == "moe":
+        out, aux = moe_ffn(h, p, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, act=act,
+                           dp_shards=dp_shards)
+        if cfg.shared_expert:
+            out = out + (act(h @ p["ws_g"]) * (h @ p["ws_u"])) @ p["ws_d"]
+        return x + out, aux
     if cfg.gated_ffn:
         out = (act(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
     else:
         out = act(h @ p["wu"]) @ p["wd"]
-    return x + out
+    return x + out, None
+
+
+def _add(a, b):
+    """a + b, where None stands for zero."""
+    return b if a is None else a if b is None else a + b
+
+
+#: an MoE layer's expert stacks, left in their stored type by _cast_unit
+_EXPERT_STACKS = ("wg", "wu", "wd")
+
+
+def _cast_unit(up: dict, kinds, dt) -> dict:
+    """A unit's weights in the compute type ``dt``, but an MoE layer's
+    expert stacks as stored: ``moe_ffn`` casts them a block of experts at
+    a time, so no copy of all of them exists in ``dt``."""
+    def cast(tree):
+        return tree_map(lambda t: t.to(dt), tree)
+    out = {}
+    for j, (_, ffn) in enumerate(kinds):
+        lp = up[f"l{j}"]
+        out[f"l{j}"] = {
+            "mixer": cast(lp["mixer"]),
+            "ffn": {k: v if ffn == "moe" and k in _EXPERT_STACKS else cast(v)
+                    for k, v in lp["ffn"].items()}}
+    return out
 
 
 def _apply_unit(x, unit_params, cfg: ModelConfig, kinds, positions,
-                caches=None, pos=None, collect: bool = False):
+                caches=None, pos=None, collect: bool = False,
+                dp_shards: int = 1):
     """One pattern unit (a list of layers) on the residual stream: a
     full-sequence pass (``caches`` None) or one decode step at ``pos``.
-    Returns ``(x, new caches)`` in the reference's per-layer layout
-    (``{"mix": ..., "ffn": ...}``; a full-sequence attention layer gives
-    its ``(k, v)``) in decode or with ``collect``, else ``(x, None)``: a
-    training pass drops each layer's cache before its FFN runs, so that
-    k and v do not stay alive through it."""
+    Returns ``(x, aux, new caches)``: aux summed over the unit's MoE
+    layers (None without one), the caches in the reference's per-layer
+    layout (``{"mix": ..., "ffn": ...}``; a full-sequence attention layer
+    gives its ``(k, v)``) in decode or with ``collect``, else None: a
+    training pass drops each layer's cache before its FFN runs, so that k
+    and v do not stay alive through it."""
     decode = caches is not None
     keep = decode or collect
     new_caches = {}
-    for j, (mixer, _) in enumerate(kinds):
+    aux_total = None
+    for j, (mixer, ffn) in enumerate(kinds):
         lp = unit_params[f"l{j}"]
         cache_j = caches[f"l{j}"] if decode else None
         if mixer == "rwkv":
@@ -502,11 +552,12 @@ def _apply_unit(x, unit_params, cfg: ModelConfig, kinds, positions,
                 x, lp["ffn"], cfg, cache_j["ffn"] if decode else None)
             entry = {"mix": mix_cache, "ffn": ffn_cache}
         else:
-            x = _ffn_apply(x, lp["ffn"], cfg)
+            x, aux = _ffn_apply(x, lp["ffn"], cfg, ffn, dp_shards)
+            aux_total = _add(aux_total, aux)
             entry = {"mix": mix_cache}
         if keep:
             new_caches[f"l{j}"] = entry
-    return x, (new_caches if keep else None)
+    return x, aux_total, (new_caches if keep else None)
 
 
 def _stack(trees: list) -> Any:
@@ -520,8 +571,22 @@ def _stack(trees: list) -> Any:
 # embedding / head / loss
 # ===================================================================== #
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    emb = params["embed"].to(_dtype(cfg.compute_dtype))
-    return F.embedding(batch["tokens"].long(), emb)
+    """Token embeddings; audio: frames @ adapter plus the sinusoidal
+    position table; vision: patches @ adapter, then the tokens'."""
+    dt = _dtype(cfg.compute_dtype)
+    if cfg.frontend == "audio":
+        x = batch["frames"].to(dt) @ params["adapter"].to(dt)
+        S, half = x.shape[1], cfg.d_model // 2
+        freq = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half)
+        ang = torch.arange(S, device=x.device)[:, None] * freq
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        return x + pe[None].to(dt)
+    tok = F.embedding(batch["tokens"].long(), params["embed"].to(dt))
+    if cfg.frontend == "vision":
+        patches = batch["patches"].to(dt) @ params["adapter"].to(dt)
+        return torch.cat([patches, tok], dim=1)
+    return tok
 
 
 def _lm_head(params, cfg: ModelConfig):
@@ -560,18 +625,18 @@ def chunked_ce(x, head_w, labels, weights, cfg: ModelConfig,
 # ===================================================================== #
 # forward pass
 # ===================================================================== #
-def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
-    """Full-sequence forward.  Returns ``(hidden (B, S, d), aux)``; aux
-    (the MoE balance loss in the reference) is zero here.  With
+def forward(params, batch, cfg: ModelConfig, *, dp_shards: int = 1,
+            collect_cache: bool = False):
+    """Full-sequence forward.  Returns ``(hidden (B, S, d), aux)``, aux
+    the MoE balance loss summed over the layers (zero without MoE).  With
     ``collect_cache`` it returns ``(hidden, aux, caches)``: each group's
     per-layer caches stacked on the layer axis, as the reference's (and
     without ``remat``, as the reference's)."""
-    _check_supported(cfg)
     dt = _dtype(cfg.compute_dtype)
     x = _embed_inputs(params, batch, cfg).to(dt)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat in ("full", "dots") and not collect_cache
-    all_caches = []
+    aux, all_caches = None, []
     for g, gp in zip(group_layout(cfg), params["groups"]):
         # one unbind per stacked leaf: its backward stacks the layers'
         # gradients once, where indexing would add a full-size zero
@@ -579,36 +644,41 @@ def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
         layers = [torch.unbind(t) for t in tree_leaves(gp)]
 
         def unit(x, *leaves, kinds=g.kinds, gp=gp):
-            up = tree_unflatten(gp, [t.to(dt) for t in leaves])
+            up = _cast_unit(tree_unflatten(gp, list(leaves)), kinds, dt)
             return _apply_unit(x, up, cfg, kinds, positions,
-                               collect=collect_cache)
+                               collect=collect_cache, dp_shards=dp_shards)
 
         def unit_x(x, *leaves, unit=unit):
-            return unit(x, *leaves)[0]
+            return unit(x, *leaves)[:2]
 
         caches = []
         for r in range(g.n_repeat):
             leaves = [layer[r] for layer in layers]
             if collect_cache:
-                x, c = unit(x, *leaves)
+                x, aux_u, c = unit(x, *leaves)
                 caches.append(c)
             elif remat:
-                x = checkpoint(unit_x, x, *leaves, use_reentrant=False)
+                x, aux_u = checkpoint(unit_x, x, *leaves,
+                                      use_reentrant=False)
             else:
-                x = unit_x(x, *leaves)
+                x, aux_u = unit_x(x, *leaves)
+            aux = _add(aux, aux_u)
         if collect_cache:
             all_caches.append(_stack(caches))
     x = _norm(x, params["final_norm"], cfg)
-    aux = torch.zeros((), device=x.device)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
     return (x, aux, all_caches) if collect_cache else (x, aux)
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
-    """Weighted CE training loss.
+def loss_fn(params, batch, cfg: ModelConfig, *, dp_shards: int = 1):
+    """Weighted CE training loss plus 0.01 x the MoE balance loss.
 
-    batch: ``tokens`` (B, S) + ``labels`` (B, S) + ``weights`` (B, S).
+    batch: ``tokens`` (B, S) (or ``frames`` (B, S, d), or ``patches``
+    (B, P, d) + ``tokens`` (B, S - P)) + ``labels`` (B, S) + ``weights``
+    (B, S).
     """
-    x, aux = forward(params, batch, cfg)
+    x, aux = forward(params, batch, cfg, dp_shards=dp_shards)
     head = _lm_head(params, cfg).to(_dtype(cfg.compute_dtype))
     loss = chunked_ce(x, head, batch["labels"], batch["weights"], cfg)
     return loss + 0.01 * aux
@@ -641,17 +711,18 @@ def _layer_cache(cfg: ModelConfig, mixer, B: int, cap: int, n: int,
 def init_cache(cfg: ModelConfig, B: int, cap: int, device="cuda") -> list:
     """Empty decode caches for ``B`` sequences of up to ``cap`` tokens,
     one dict per group, leaves stacked on the layer axis."""
-    _check_supported(cfg)
     return [{f"l{j}": _layer_cache(cfg, mixer, B, cap, g.n_repeat, device)
              for j, (mixer, _) in enumerate(g.kinds)}
             for g in group_layout(cfg)]
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ModelConfig):
+def prefill(params, batch, cfg: ModelConfig, *, dp_shards: int = 1):
     """Forward + build decode caches.  Returns ``(last_logits (B, V)
-    float32, caches, pos)`` with ``pos`` = S, the next token's position."""
-    x, _, raw = forward(params, batch, cfg, collect_cache=True)
+    float32, caches, pos)`` with ``pos`` = S, the next token's position
+    (a vision batch's S counts its patches)."""
+    x, _, raw = forward(params, batch, cfg, dp_shards=dp_shards,
+                        collect_cache=True)
     S = x.shape[1]
     cdt = _dtype(cfg.compute_dtype)
     caches = []
@@ -702,13 +773,16 @@ def pad_cache(caches: list, cfg: ModelConfig, extra: int) -> list:
 
 
 @torch.no_grad()
-def decode_step(params, tokens, caches: list, pos: int, cfg: ModelConfig):
+def decode_step(params, tokens, caches: list, pos: int, cfg: ModelConfig,
+                *, dp_shards: int = 1):
     """One serve step: ``tokens`` (B, 1) at position ``pos`` -> ``(logits
     (B, V) float32, new caches)``.  Full-attention layers write the token
     at ``pos`` (callers keep pos < cap); local layers write slot ``pos``
     until the cache holds ``window`` slots and use it as a ring after
-    that; RG-LRU and RWKV layers step their state."""
-    _check_supported(cfg)
+    that; RG-LRU and RWKV layers step their state; MoE layers route the B
+    tokens (the balance loss is dropped, as the reference drops it)."""
+    if cfg.frontend == "audio":
+        raise ValueError("encoder-only architecture has no decode step")
     dt = _dtype(cfg.compute_dtype)
     # gather, then cast: the reference's take of the cast table, cheaper
     x = F.embedding(tokens.long(), params["embed"]).to(dt)
@@ -718,10 +792,11 @@ def decode_step(params, tokens, caches: list, pos: int, cfg: ModelConfig):
         cache_layers = [torch.unbind(t) for t in tree_leaves(gc)]
         outs = []
         for r in range(g.n_repeat):
-            up = tree_unflatten(gp, [t[r].to(dt) for t in layers])
+            up = _cast_unit(tree_unflatten(gp, [t[r] for t in layers]),
+                            g.kinds, dt)
             uc = tree_unflatten(gc, [t[r] for t in cache_layers])
-            x, nc = _apply_unit(x, up, cfg, g.kinds, None, caches=uc,
-                                pos=pos)
+            x, _, nc = _apply_unit(x, up, cfg, g.kinds, None, caches=uc,
+                                   pos=pos, dp_shards=dp_shards)
             outs.append(nc)
         new_caches.append(_stack(outs))
     x = _norm(x, params["final_norm"], cfg)

@@ -441,10 +441,13 @@ def test_flash_attention_head_dim_256_matches_plain_on_card(cuda_device,
     q, k, v, _ = _attention_inputs(cuda_device, (1, 300, 1, 10, 256),
                                    (1, 300, 1, 256), dtype)
     kw = dict(causal=True, window=100, q_chunk=64, kv_chunk=64)
-    before = flash_attention.fwd_launches
+    before = (flash_attention.fwd_launches,
+              flash_attention.fwd_windowed_launches)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.fwd_launches == before + 1
+    assert (flash_attention.fwd_launches,
+            flash_attention.fwd_windowed_launches) == (before[0] + 1,
+                                                       before[1] + 1)
     out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, **kw)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                out_ref.float().cpu().numpy(),

@@ -243,10 +243,13 @@ def test_cpu_path_counts_no_launches_on_either_route(dtype):
     k = torch.from_numpy(rng.standard_normal((1, 24, 1, 16)).astype(
         np.float32)).to(dtype).requires_grad_(True)
     v = k.detach().clone().requires_grad_(True)
-    before = (flash_attention.fwd_launches, flash_attention.bwd_launches)
+    before = (flash_attention.fwd_launches,
+              flash_attention.fwd_windowed_launches,
+              flash_attention.bwd_launches)
     out = flash_attention(q, k, v, window=8)
     out.float().sum().backward()
     assert (flash_attention.fwd_launches,
+            flash_attention.fwd_windowed_launches,
             flash_attention.bwd_launches) == before
     assert out.dtype == q.grad.dtype == k.grad.dtype == dtype
 

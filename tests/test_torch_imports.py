@@ -65,5 +65,13 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.sim.fleet", "repro_torch.sim.montecarlo",
                 "repro_torch.sim.sweep", "repro_torch.sim.threefry",
                 "repro_torch.sim.device_epoch", "repro_torch.sim.soak",
-                "repro_torch.sim.policy", "repro_torch.sim.frontier"):
+                "repro_torch.sim.policy", "repro_torch.sim.frontier",
+                "repro_torch.models.moe", "repro_torch.data.batches",
+                "repro_torch.configs.granite_moe_3b_a800m",
+                "repro_torch.configs.llama4_maverick_400b_a17b",
+                "repro_torch.configs.qwen3_14b",
+                "repro_torch.configs.deepseek_67b",
+                "repro_torch.configs.gemma3_12b",
+                "repro_torch.configs.internvl2_26b",
+                "repro_torch.configs.hubert_xlarge"):
         assert mod in got["imported"]

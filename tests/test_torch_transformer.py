@@ -17,6 +17,7 @@ config is checked for shapes and flatten order only, without allocating
 it.
 """
 import dataclasses
+import importlib
 
 import jax
 import jax.experimental
@@ -30,9 +31,9 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 from jax.flatten_util import ravel_pytree                         # noqa: E402
 
-import repro.configs.recurrentgemma_2b as ref_rg                 # noqa: E402
-import repro.configs.rwkv6_1_6b as ref_rwkv6                     # noqa: E402
 import repro.configs.stablelm_1_6b as ref_stablelm                # noqa: E402
+import repro.configs.base as ref_configs                          # noqa: E402
+import repro.data.batches as ref_batches                          # noqa: E402
 import repro.data.pipeline as ref_data                            # noqa: E402
 import repro.models.common as ref_common                          # noqa: E402
 import repro.models.transformer as ref_tf                         # noqa: E402
@@ -41,6 +42,7 @@ from repro.configs.base import ModelConfig as RefConfig           # noqa: E402
 
 import repro_torch.configs as port_configs                        # noqa: E402
 import repro_torch.configs.stablelm_1_6b as port_stablelm         # noqa: E402
+import repro_torch.data.batches as port_batches                  # noqa: E402
 import repro_torch.data.pipeline as port_data                     # noqa: E402
 import repro_torch.models.common as port_common                   # noqa: E402
 import repro_torch.models.transformer as port_tf                  # noqa: E402
@@ -97,6 +99,10 @@ def _loss_and_grads(rcfg, pcfg, seq_len=32, n=2, seed=0):
     pbatch = port_data.SyntheticLMDataset(6, n, seq_len, pcfg.vocab,
                                           seed=seed,
                                           device="cpu").partition(1, 3)
+    return _batch_loss_and_grads(rcfg, pcfg, params, batch, pbatch)
+
+
+def _batch_loss_and_grads(rcfg, pcfg, params, batch, pbatch):
     ref_grad = jax.jit(jax.value_and_grad(
         lambda p: ref_tf.loss_fn(p, batch, rcfg)))
     loss_r, g_r = ref_grad(params)
@@ -238,25 +244,44 @@ def test_init_params_follow_the_specs():
 
 @pytest.mark.parametrize("over", [
     {"n_experts": 4, "top_k": 1, "shared_expert": True},
-    {"frontend": "vision"},
-    {"n_experts": 4, "top_k": 2}, {"frontend": "audio"}])
-def test_unported_layers_raise_with_roadmap_pointer(over):
-    _, pcfg = _configs(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tf.model_specs(pcfg)
+    {"frontend": "vision", "n_patches": 8},
+    {"n_experts": 4, "top_k": 2, "capacity_factor": 0.5},
+    {"frontend": "audio", "causal": False},
+])
+def test_moe_and_frontend_layers_match_reference(over):
+    """The MoE FFN (top-1 with a shared expert; top-2 with tokens dropped)
+    and both frontends: the loss and every gradient leaf, held as the
+    dense layers are."""
+    rcfg, pcfg = _configs(**over)
+    params = jax.tree.map(np.asarray,
+                          ref_tf.init_params(rcfg, jax.random.PRNGKey(4)))
+    batch = ref_batches.synthetic_batch(rcfg, 2, 32, "train", seed=4)
+    pbatch = port_batches.synthetic_batch(pcfg, 2, 32, "train", seed=4,
+                                          device="cpu")
+    (loss_r, g_r), (loss_p, g_p), g_nudged = _batch_loss_and_grads(
+        rcfg, pcfg, params, batch, pbatch)
+    np.testing.assert_allclose(float(loss_p), float(loss_r), rtol=LOSS_RTOL)
+    _assert_grads_close(g_r, g_p, g_nudged)
 
 
 # --------------------------------------------------------------------- #
 # the pieces: configs, common blocks, dataset bytes, curves
 # --------------------------------------------------------------------- #
 def test_configs_are_the_reference_s():
-    assert port_configs.list_archs() == ["recurrentgemma-2b", "rwkv6-1.6b",
-                                         "stablelm-1.6b"]
-    for arch, ref in (("recurrentgemma-2b", ref_rg),
-                      ("rwkv6-1.6b", ref_rwkv6),
-                      ("stablelm-1.6b", ref_stablelm)):
+    # the reference's registry loads its modules only when it is empty
+    # (ROADMAP.md section 3), so import all ten first
+    for mod in ("llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
+                "recurrentgemma_2b", "internvl2_26b", "deepseek_67b",
+                "gemma3_12b", "qwen3_14b", "stablelm_1_6b", "hubert_xlarge",
+                "rwkv6_1_6b"):
+        importlib.import_module(f"repro.configs.{mod}")
+    archs = ref_configs.list_archs()
+    assert len(archs) == 10
+    assert port_configs.list_archs() == archs
+    for arch in archs:
         for reduced in (False, True):
-            r = dataclasses.asdict(ref.REDUCED if reduced else ref.FULL)
+            r = dataclasses.asdict(ref_configs.get_config(arch,
+                                                          reduced=reduced))
             p = dataclasses.asdict(port_configs.get_config(arch,
                                                            reduced=reduced))
             assert r == p
