@@ -23,7 +23,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.optim.optimizers import (clip_by_global_norm, tree_leaves,
+from repro_torch.optim.optimizers import (clip_by_global_norm,
+                                          clip_by_global_norm_, tree_leaves,
                                           tree_map, tree_unflatten)
 
 __all__ = ["SlotPlan", "build_slot_plan", "slot_weights", "slot_batch",
@@ -120,39 +121,51 @@ def _value_and_grad(loss_fn: Callable) -> Callable:
 
 def make_train_step(loss_fn: Callable, optimizer, *,
                     grad_transform: Optional[Callable] = None,
-                    clip_norm: float = 0.0) -> Callable:
+                    clip_norm: float = 0.0, inplace: bool = False
+                    ) -> Callable:
     """Standard step: ``(params, opt_state, batch) -> (params, opt_state,
     aux)``.
 
     ``loss_fn(params, batch) -> scalar``; ``aux`` holds ``loss`` and
     ``grad_norm`` (the global norm before clipping, 0 without
     ``clip_norm``).  ``grad_transform(grads) -> grads`` hooks in gradient
-    compression.
+    compression.  With ``inplace`` the step writes into ``params`` and
+    ``opt_state`` (``optimizer.update_``) and returns them: the memory of
+    new trees is never taken.
     """
+    if inplace and grad_transform is not None:
+        raise ValueError("grad_transform takes a functional step")
     grad = _value_and_grad(loss_fn)
 
     def step(params, opt_state, batch):
         loss, grads = grad(params, batch)
         gn = torch.zeros((), device=loss.device)
-        if clip_norm:
-            grads, gn = clip_by_global_norm(grads, clip_norm)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        if inplace:
+            grads = tree_leaves(grads)     # update_ lets go of each leaf
+            if clip_norm:
+                gn = clip_by_global_norm_(grads, clip_norm)
+            opt_state = optimizer.update_(grads, opt_state, params)
+        else:
+            if clip_norm:
+                grads, gn = clip_by_global_norm(grads, clip_norm)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gn}
 
     return step
 
 
 def make_coded_train_step(per_slot_loss_fn: Callable,
-                          optimizer) -> Callable:
+                          optimizer, *, inplace: bool = False) -> Callable:
     """Coded step over slotted batches: ``(params, opt_state, slot_batch,
     weights) -> (params, opt_state, {"loss"})``.
 
     ``per_slot_loss_fn(params, slot_batch) -> (M, n_slots)`` per-slot mean
     losses.  The step contracts them with the runtime's weight matrix
     (a_m·B[m,k]) and takes one backward: by linearity its gradient is the
-    exact decoded full gradient.
+    exact decoded full gradient.  ``inplace`` as in
+    :func:`make_train_step`.
     """
     grad = _value_and_grad(
         lambda p, slot_batch, weights: torch.sum(
@@ -160,7 +173,11 @@ def make_coded_train_step(per_slot_loss_fn: Callable,
 
     def step(params, opt_state, slot_batch, weights):
         loss, grads = grad(params, slot_batch, weights)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        if inplace:
+            grads = tree_leaves(grads)     # update_ lets go of each leaf
+            opt_state = optimizer.update_(grads, opt_state, params)
+        else:
+            params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss}
 
     return step

@@ -18,8 +18,7 @@
 // k, v, dk, dv (B, S, KV, D); lse and Dvec (B, KV, G, S) float32.  The kv
 // head of query head (kv, g) is `kv` -- the kernels index it and never
 // broadcast k or v G times, as the Pallas wrapper does.  D is a multiple
-// of 8, at most 256 in the forward and at most 128 in the backward; S is
-// any length (the ragged last tile is masked in the kernel, never padded in
+// of 8, at most 256; S is any length (the ragged last tile is masked in the kernel, never padded in
 // memory); offsets are 64-bit.
 //
 // Two routes, chosen by the input type (the wrapper, ops.py, picks the
@@ -77,12 +76,21 @@
 //   (two blocks an SM, as registers allow), 96 KB at 128; at 256 Q + 2 x
 //   (K + V) = 160 KB (one block an SM, of the 227 KB a block may have);
 //   backward two fixed tiles + 2 x two ring tiles = 48 KB at D = 64, 96 KB
-//   at 128.  Registers: each consumer thread holds 32 float32 of every
-//   64 x 64 accumulator, so the forward at D = 256 holds 128 of O + 32 of S
-//   + 16 of P; the blocks are declared with __launch_bounds__ so ptxas
-//   keeps them under 255 (the build log, `-Xptxas -v`, prints registers
-//   and spills).  The forward walks the heaviest q tiles (the last, under a
-//   causal mask) first.
+//   at 128, 192 KB at 256.  Registers: each consumer thread holds 32
+//   float32 of every 64 x 64 accumulator, so the forward at D = 256 holds
+//   128 of O + 32 of S + 16 of P; the blocks are declared with
+//   __launch_bounds__ so ptxas keeps them under 255 (the build log,
+//   `-Xptxas -v`, prints registers and spills).  The forward walks the
+//   heaviest q tiles (the last, under a causal mask) first.
+//   The backward at D = 256.  dK and dV, 64 x 256 float32 each, would take
+//   256 registers a thread, and dQ with S and dP 192.  So a backward block
+//   accumulates only some of the output columns: a dq block two boxes
+//   (128 columns; S, dP, dQ and dS: 144 registers), a dk/dv block one box
+//   of dK and of dV (S, dP, P, dS, dK, dV: 160), and the grid's x axis
+//   holds the 2 (dq) or 4 (dk/dv) blocks of each tile.  Each of them still
+//   loads the whole D of its tiles and takes S and dP over all of D: the
+//   dk/dv pass does those two products four times, 2.5x its work at
+//   D <= 128.  The simple design; the outputs stay free of atomics.
 //
 // * float32 -> CUDA cores (`fa_fwd_kernel`, `fa_bwd_dq_kernel`,
 //   `fa_bwd_dkdv_kernel`, instances for float only).  Tensor cores would
@@ -95,13 +103,14 @@
 //   odd stride (D + 1) so the 16 threads of a half-warp that read 16 rows at
 //   one column hit 16 banks.  Its tiles take 4·(3·64·(D + 1) + 64·65 + 128)
 //   bytes, 214,528 at D = 256 (one block an SM); the backward's passes
-//   would need about 281 KB and 297 KB at D = 256, so they stop at 128.
+//   would need about 281 KB and 297 KB at D = 256, so above D = 128 they
+//   run `fa_bwd_dq_wide_kernel` and `fa_bwd_dkdv_wide_kernel`: a block
+//   owns 128 output columns and takes the D-contractions in chunks of 128
+//   columns (150 KB and 166 KB).
 //
-// Both routes are deterministic: the dq pass owns a q tile, and the dk/dv
-// pass sums the G query heads of its kv head and their q tiles inside one
-// block, in a fixed order, without atomics.  The backward stops at
-// D = 128 on both routes (kMaxBwdD); the launcher refuses a wider head
-// before any launch.
+// Both routes are deterministic: the dq pass owns a q tile (and a group of
+// its columns), and the dk/dv pass sums the G query heads of its kv head
+// and their q tiles inside one block, in a fixed order, without atomics.
 
 #include <cuda.h>              // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -534,20 +543,283 @@ fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------------
+// backward at D > 128, float32: the passes above would need about 281 KB
+// and 297 KB of shared memory at D = 256.  Each block owns the output
+// columns of one group of kWideCols (dq, or dk and dv) and sums the
+// D-contractions S = Q·Kᵀ and dP = dO·Vᵀ over chunks of kWideCols
+// columns, loaded in turn, its own chunk last: that chunk's tiles are the
+// ones its outputs need, and they are still in shared memory.  The grid's
+// x axis holds the groups of each tile; nothing is summed across blocks.
+// ------------------------------------------------------------------------
+constexpr int kWideCols = 128;
+constexpr int kLdW = kWideCols + 1;
+constexpr int kWideNJ = kWideCols / 16;
+
+__host__ __device__ inline int wide_groups(int D) {
+  return (D + kWideCols - 1) / kWideCols;
+}
+
+// columns [col0, col0 + n) of rows [row0, row0 + 64) of a (.., S, .., D)
+// tensor as float (times `mul`), zeros beyond S and beyond n
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
+                                          int64_t stride, int row0, int col0,
+                                          int n, const Shape& sh, float mul) {
+  for (int idx = threadIdx.x; idx < kTile * kWideCols; idx += kThreads) {
+    const int r = idx / kWideCols, c = idx - r * kWideCols;
+    const int row = row0 + r;
+    dst[r * kLdW + c] = row < sh.S && c < n
+                            ? src[(int64_t)row * stride + col0 + c] * mul
+                            : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ out,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ dvec, float* __restrict__ dq,
+                      Shape sh) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + kTile * kLdW;
+  float* sK = sdO + kTile * kLdW;
+  float* sV = sK + kTile * kLdW;
+  float* sdS = sV + kTile * kLdW;
+  float* sL = sdS + kTile * kLdP;
+  float* sDv = sL + kTile;
+
+  const int n_q = (sh.S + kTile - 1) / kTile, n_grp = wide_groups(sh.D);
+  const int qt = n_q - 1 - blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int h = blockIdx.y, kv = h / sh.G, b = blockIdx.z;
+  const int q0 = qt * kTile;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t q_stride = (int64_t)sh.KV * sh.G * sh.D;
+  const int64_t k_stride = (int64_t)sh.KV * sh.D;
+  const int64_t q_off = (int64_t)b * sh.S * q_stride + (int64_t)h * sh.D;
+  const float* kb = k + (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
+  const float* vb = v + (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
+  const int64_t row_off = ((int64_t)b * sh.KV * sh.G + h) * sh.S;
+
+  // Dvec: one warp per row, lanes over d; the first group writes it
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kTile; r += kThreads / 32) {
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < sh.S) {
+      const float* o_row = out + q_off + (int64_t)row * q_stride;
+      const float* do_row = dout + q_off + (int64_t)row * q_stride;
+      for (int d = lane; d < sh.D; d += 32)
+        acc = fmaf(do_row[d], o_row[d], acc);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      sDv[r] = acc;
+      sL[r] = row < sh.S ? lse[row_off + row] : 0.f;
+      if (row < sh.S && grp == 0) dvec[row_off + row] = acc;
+    }
+  }
+
+  float dqa[4][kWideNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) dqa[i][j] = 0.f;
+
+  int kt_lo, kt_hi;
+  kv_band(sh, qt, &kt_lo, &kt_hi);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * kTile;
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 1; ci <= n_grp; ++ci) {
+      const int col0 = (grp + ci) % n_grp * kWideCols;
+      const int n = min(kWideCols, sh.D - col0);
+      __syncthreads();
+      load_cols(sQ, q + q_off, q_stride, q0, col0, n, sh, sh.scale);
+      load_cols(sdO, dout + q_off, q_stride, q0, col0, n, sh, 1.f);
+      load_cols(sK, kb, k_stride, k0, col0, n, sh, 1.f);
+      load_cols(sV, vb, k_stride, k0, col0, n, sh, 1.f);
+      __syncthreads();
+      dot_tile(s, sQ, sK, kLdW, n, ty, tx);
+      dot_tile(dp, sdO, sV, kLdW, n, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = tx + 16 * j;
+        const float p = visible(sh, q0 + rl, k0 + cl)
+                            ? expf(s[i][j] - sL[rl]) : 0.f;
+        sdS[rl * kLdP + cl] = p * (dp[i][j] - sDv[rl]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {           // sK holds this group's
+      float a[4], kk[kWideNJ];                  // columns
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sdS[(ty + 16 * i) * kLdP + c];
+#pragma unroll
+      for (int j = 0; j < kWideNJ; ++j) kk[j] = sK[c * kLdW + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j)
+          dqa[i][j] = fmaf(a[i], kk[j], dqa[i][j]);
+    }
+  }
+
+  float* dqb = dq + q_off;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= sh.S) continue;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) {
+      const int d = grp * kWideCols + tx + 16 * j;
+      if (d < sh.D)
+        dqb[(int64_t)r * q_stride + d] = dqa[i][j] * sh.scale;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dkdv_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dvec,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        Shape sh) {
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kTile * kLdW;
+  float* sQ = sV + kTile * kLdW;
+  float* sdO = sQ + kTile * kLdW;
+  float* sPT = sdO + kTile * kLdW;
+  float* sdST = sPT + kTile * kLdP;
+  float* sL = sdST + kTile * kLdP;
+  float* sDv = sL + kTile;
+
+  const int n_grp = wide_groups(sh.D);
+  const int kt = blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kTile;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t q_stride = (int64_t)sh.KV * sh.G * sh.D;
+  const int64_t k_stride = (int64_t)sh.KV * sh.D;
+  const int64_t k_off = (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
+
+  float dka[4][kWideNJ], dva[4][kWideNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  int qt_lo, qt_hi;
+  q_band(sh, kt, &qt_lo, &qt_hi);
+  for (int g = 0; g < sh.G; ++g) {
+    const int h = kv * sh.G + g;
+    const int64_t q_off = (int64_t)b * sh.S * q_stride + (int64_t)h * sh.D;
+    const int64_t row_off = ((int64_t)b * sh.KV * sh.G + h) * sh.S;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * kTile;
+      // transposed tiles: rows are keys (ty + 16i), columns queries
+      float st[4][4] = {}, dpt[4][4] = {};
+      for (int ci = 1; ci <= n_grp; ++ci) {
+        const int col0 = (grp + ci) % n_grp * kWideCols;
+        const int n = min(kWideCols, sh.D - col0);
+        __syncthreads();
+        load_cols(sK, k + k_off, k_stride, k0, col0, n, sh, 1.f);
+        load_cols(sV, v + k_off, k_stride, k0, col0, n, sh, 1.f);
+        load_cols(sQ, q + q_off, q_stride, q0, col0, n, sh, sh.scale);
+        load_cols(sdO, dout + q_off, q_stride, q0, col0, n, sh, 1.f);
+        if (ci == 1) {
+          for (int r = threadIdx.x; r < kTile; r += kThreads) {
+            const bool in = q0 + r < sh.S;
+            sL[r] = in ? lse[row_off + q0 + r] : 0.f;
+            sDv[r] = in ? dvec[row_off + q0 + r] : 0.f;
+          }
+        }
+        __syncthreads();
+        dot_tile(st, sK, sQ, kLdW, n, ty, tx);
+        dot_tile(dpt, sV, sdO, kLdW, n, ty, tx);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int cl = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rl = tx + 16 * j;
+          const float p = visible(sh, q0 + rl, k0 + cl)
+                              ? expf(st[i][j] - sL[rl]) : 0.f;
+          sPT[cl * kLdP + rl] = p;
+          sdST[cl * kLdP + rl] = p * (dpt[i][j] - sDv[rl]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < kTile; ++r) {       // sQ and sdO hold this
+        float pa[4], sa[4], dov[kWideNJ], qv[kWideNJ];   // group's columns
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = sPT[(ty + 16 * i) * kLdP + r];
+          sa[i] = sdST[(ty + 16 * i) * kLdP + r];
+        }
+#pragma unroll
+        for (int j = 0; j < kWideNJ; ++j) {
+          dov[j] = sdO[r * kLdW + tx + 16 * j];
+          qv[j] = sQ[r * kLdW + tx + 16 * j];     // q already times scale
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kWideNJ; ++j) {
+            dva[i][j] = fmaf(pa[i], dov[j], dva[i][j]);
+            dka[i][j] = fmaf(sa[i], qv[j], dka[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = k0 + ty + 16 * i;
+    if (c >= sh.S) continue;
+#pragma unroll
+    for (int j = 0; j < kWideNJ; ++j) {
+      const int d = grp * kWideCols + tx + 16 * j;
+      if (d < sh.D) {
+        dk[k_off + (int64_t)c * k_stride + d] = dka[i][j];
+        dv[k_off + (int64_t)c * k_stride + d] = dva[i][j];
+      }
+    }
+  }
+}
+
 // shared memory of each kernel, in bytes; the slack after the last buffer
 // covers the reads of columns d >= D (up to 16·NJ - 1) in the last row
 constexpr int kSlack = 128;
-inline size_t fwd_smem(int D) {
+constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdP + kSlack);
 }
-inline size_t dq_smem(int D) {
+constexpr size_t dq_smem(int D) {
   return sizeof(float) *
          (4 * kTile * (D + 1) + kTile * kLdP + 2 * kTile + kSlack);
 }
-inline size_t dkdv_smem(int D) {
+constexpr size_t dkdv_smem(int D) {
   return sizeof(float) *
          (4 * kTile * (D + 1) + 2 * kTile * kLdP + 2 * kTile + kSlack);
 }
+constexpr size_t kDqWideSmem = dq_smem(kWideCols);
+constexpr size_t kDkdvWideSmem = dkdv_smem(kWideCols);
 
 template <int NJ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
@@ -594,6 +866,31 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
+                            const void* out, const void* dout,
+                            const void* lse, void* dvec, void* dq, void* dk,
+                            void* dv, const Shape& sh, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kDqWideSmem);
+  if (err != cudaSuccess) return err;
+  const int n_t = (sh.S + kTile - 1) / kTile, n_grp = wide_groups(sh.D);
+  fa_bwd_dq_wide_kernel<<<dim3(n_t * n_grp, sh.KV * sh.G, sh.B), kThreads,
+                          kDqWideSmem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)out,
+      (const float*)dout, (const float*)lse, (float*)dvec, (float*)dq, sh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDkdvWideSmem);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkdv_wide_kernel<<<dim3(n_t * n_grp, sh.KV, sh.B), kThreads,
+                            kDkdvWideSmem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)dvec, (float*)dk, (float*)dv, sh);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------------
 // the tensor-core route (bfloat16): TMA, mbarriers and wgmma
 // ------------------------------------------------------------------------
@@ -616,6 +913,19 @@ template <int NB> __host__ __device__ constexpr int fwd_threads() {
 }
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// backward: the boxes of 64 output columns a block accumulates (the rest
+// of D goes to other blocks of the grid's x axis); all of them up to
+// D = 128, at D = 256 two for dq and one each for dk and dv
+template <int NB> __host__ __device__ constexpr int dq_out_boxes() {
+  return NB > 2 ? 2 : NB;
+}
+template <int NB> __host__ __device__ constexpr int dkdv_out_boxes() {
+  return NB > 2 ? 1 : NB;
+}
+// the blocks that share the output columns of one tile
+template <int NO> __host__ __device__ inline int out_groups(int D) {
+  return (D + NO * kBoxCols - 1) / (NO * kBoxCols);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -991,7 +1301,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // backward, pass 1: Dvec = rowsum(dout ⊙ out) and dq, one block per
 // (q tile, query head, batch row), over the tile's kv band
 // ------------------------------------------------------------------------
-template <int NB>
+template <int NB, int NO>
 __global__ void __launch_bounds__(kBwdThreads, NB == 1 ? 2 : 1)
 fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -1009,7 +1319,8 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t bars = base + L::kBars, fixed = bars;
 
   const int n_q = (sh.S + kTile - 1) / kTile;
-  const int qt = n_q - 1 - blockIdx.x;
+  const int n_grp = out_groups<NO>(sh.D);
+  const int qt = n_q - 1 - blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
   const int h = blockIdx.y, kv = h / sh.G, b = blockIdx.z;
   const int q0 = qt * kTile;
   int lo, hi;
@@ -1070,16 +1381,16 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     dv0 += __shfl_xor_sync(0xffffffffu, dv0, o_);
     dv1 += __shfl_xor_sync(0xffffffffu, dv1, o_);
   }
-  if ((ln & 3) == 0) {
+  if ((ln & 3) == 0 && grp == 0) {
     if (r0 < sh.S) dvec[row_off + r0] = dv0;
     if (r1 < sh.S) dvec[row_off + r1] = dv1;
   }
   const float L0 = r0 < sh.S ? lse[row_off + r0] * kLog2e : 0.f;
   const float L1 = r1 < sh.S ? lse[row_off + r1] * kLog2e : 0.f;
 
-  float dqa[NB][32];
+  float dqa[NO][32];
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NO; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
 
@@ -1122,24 +1433,24 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < NB; ++c)
+    for (int c = 0; c < NO; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dqa[c], da[kk], desc_mn(tK, c, kk));
+        mma_rs(dqa[c], da[kk], desc_mn(tK, grp * NO + c, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int c = 0; c < NB; ++c) keep(dqa[c]);
+    for (int c = 0; c < NO; ++c) keep(dqa[c]);
     keep(da);
     mbar_arrive(bars + 8 * (1 + kStages + s));
   }
 
   bf16* dqb = dq + q_off;
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NO; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = c * kBoxCols + 8 * j + cq;
+      const int d = (grp * NO + c) * kBoxCols + 8 * j + cq;
       if (d >= sh.D) continue;
       if (r0 < sh.S)
         *reinterpret_cast<__nv_bfloat162*>(dqb + r0 * q_stride + d) =
@@ -1156,7 +1467,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // backward, pass 2: dk and dv, one block per (kv tile, kv head, batch
 // row), summing the G query heads of the kv head and the q tiles of each
 // ------------------------------------------------------------------------
-template <int NB>
+template <int NB, int NO>
 __global__ void __launch_bounds__(kBwdThreads, NB == 1 ? 2 : 1)
 fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -1175,7 +1486,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float* rows = reinterpret_cast<float*>(gbase + L::kRowVals);
   const uint32_t bars = base + L::kBars, fixed = bars;
 
-  const int kt = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int n_grp = out_groups<NO>(sh.D);
+  const int kt = blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int kv = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * kTile;
   int qlo, qhi;
   q_band(sh, kt, &qlo, &qhi);
@@ -1222,9 +1535,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int kr0 = k0 + 16 * w + (ln >> 2), kr1 = kr0 + 8;   // keys
   const int cq = 2 * (ln & 3);
   const float sl2 = sh.scale * kLog2e;
-  float dka[NB][32], dva[NB][32];
+  float dka[NO][32], dva[NO][32];
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NO; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
 
@@ -1274,19 +1587,19 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < NB; ++c)
+    for (int c = 0; c < NO; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dva[c], pa[kk], desc_mn(tdO, c, kk));
+        mma_rs(dva[c], pa[kk], desc_mn(tdO, grp * NO + c, kk));
 #pragma unroll
-    for (int c = 0; c < NB; ++c)
+    for (int c = 0; c < NO; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dka[c], da[kk], desc_mn(tQ, c, kk));
+        mma_rs(dka[c], da[kk], desc_mn(tQ, grp * NO + c, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int c = 0; c < NB; ++c) {
+    for (int c = 0; c < NO; ++c) {
       keep(dka[c]);
       keep(dva[c]);
     }
@@ -1298,10 +1611,10 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int64_t k_stride = (int64_t)sh.KV * sh.D;
   const int64_t k_off = (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NO; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = c * kBoxCols + 8 * j + cq;
+      const int d = (grp * NO + c) * kBoxCols + 8 * j + cq;
       if (d >= sh.D) continue;
       if (kr0 < sh.S) {
         const int64_t at = k_off + kr0 * k_stride + d;
@@ -1414,26 +1727,30 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
       (err = make_map(&tv, v, sh.KV, sh)) != cudaSuccess ||
       (err = make_map(&tdo, dout, sh.KV * sh.G, sh)) != cudaSuccess)
     return err;
+  constexpr int kDqO = tc::dq_out_boxes<NB>();
+  constexpr int kKvO = tc::dkdv_out_boxes<NB>();
+  auto dq_kernel = tc::fa_bwd_dq_tc_kernel<NB, kDqO>;
+  auto dkdv_kernel = tc::fa_bwd_dkdv_tc_kernel<NB, kKvO>;
   const int smem = tc::Smem<NB>::kBytes;
-  if ((err = allow_smem(tc::fa_bwd_dq_tc_kernel<NB>, smem)) != cudaSuccess ||
-      (err = allow_smem(tc::fa_bwd_dkdv_tc_kernel<NB>, smem)) != cudaSuccess)
+  if ((err = allow_smem(dq_kernel, smem)) != cudaSuccess ||
+      (err = allow_smem(dkdv_kernel, smem)) != cudaSuccess)
     return err;
   const int n_t = (sh.S + kTile - 1) / kTile;
-  tc::fa_bwd_dq_tc_kernel<NB>
-      <<<dim3(n_t, sh.KV * sh.G, sh.B), tc::kBwdThreads, smem, stream>>>(
-          tq, tk, tv, tdo, (const tc::bf16*)out, (const tc::bf16*)dout,
-          (const float*)lse, (float*)dvec, (tc::bf16*)dq, sh);
+  dq_kernel<<<dim3(n_t * tc::out_groups<kDqO>(sh.D), sh.KV * sh.G, sh.B),
+              tc::kBwdThreads, smem, stream>>>(
+      tq, tk, tv, tdo, (const tc::bf16*)out, (const tc::bf16*)dout,
+      (const float*)lse, (float*)dvec, (tc::bf16*)dq, sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  tc::fa_bwd_dkdv_tc_kernel<NB>
-      <<<dim3(n_t, sh.KV, sh.B), tc::kBwdThreads, smem, stream>>>(
-          tq, tk, tv, tdo, (const float*)lse, (const float*)dvec,
-          (tc::bf16*)dk, (tc::bf16*)dv, sh);
+  dkdv_kernel<<<dim3(n_t * tc::out_groups<kKvO>(sh.D), sh.KV, sh.B),
+                tc::kBwdThreads, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)dvec,
+      (tc::bf16*)dk, (tc::bf16*)dv, sh);
   return cudaGetLastError();
 }
 
 // widest head of each direction (see the note at the top)
 constexpr int kMaxFwdD = 256;
-constexpr int kMaxBwdD = 128;
+constexpr int kMaxBwdD = 256;
 
 // float32: NJ = columns of D per thread / 16, rounded up to a power of
 // two; only the instances up to kMaxNJ are built
@@ -1481,8 +1798,12 @@ struct BwdArgs {
   Shape sh;
   cudaStream_t st;
   template <int NJ> cudaError_t run() const {
-    return launch_bwd<NJ>(q, k, v, out, dout, lse, dvec, dq, dk, dv,
-                                 sh, st);
+    if constexpr (NJ > kWideNJ)
+      return launch_bwd_wide(q, k, v, out, dout, lse, dvec, dq, dk, dv, sh,
+                             st);
+    else
+      return launch_bwd<NJ>(q, k, v, out, dout, lse, dvec, dq, dk, dv, sh,
+                            st);
   }
   template <int NB> cudaError_t run_tc() const {
     return launch_bwd_tc<NB>(q, k, v, out, dout, lse, dvec, dq, dk, dv, sh,
@@ -1557,7 +1878,8 @@ int fa_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
 int fa_bf16_smem_bytes(int backward, int D) {
   const int nb = D <= 64 ? 1 : D <= 128 ? 2 : 4;
   if (backward)
-    return nb == 1 ? tc::Smem<1>::kBytes : tc::Smem<2>::kBytes;
+    return nb == 1 ? tc::Smem<1>::kBytes
+                   : nb == 2 ? tc::Smem<2>::kBytes : tc::Smem<4>::kBytes;
   return nb == 1 ? tc::Smem<1>::kFwdBytes
                  : nb == 2 ? tc::Smem<2>::kFwdBytes : tc::Smem<4>::kFwdBytes;
 }

@@ -10,9 +10,9 @@ CUDA cores in full float32.  ``flash_attention.fwd_launches`` and
 ``.bwd_launches`` count the kernels' launches (one forward kernel per
 forward call; the dq and dk/dv kernels of one backward call count once),
 not the CPU path's calls; ``.fwd_windowed_launches`` counts those forward
-launches that had a sliding window.  The forward takes a head width up to 256, the
-backward up to 128 (``csrc/flash_attention.cu`` says why); a wider backward
-on the card raises before any launch.
+launches that had a sliding window.  Forward and backward take a head
+width up to 256; above 128 the backward's blocks split the output columns
+(``csrc/flash_attention.cu`` says how).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: Widest head the forward kernel takes (its rows sit in shared memory).
 MAX_HEAD_DIM = 256
 #: Widest head the backward kernels take.
-MAX_BWD_HEAD_DIM = 128
+MAX_BWD_HEAD_DIM = 256
 
 #: The kernels each input type runs: the name of the route, then the C
 #: entry points of the forward and the backward.
@@ -55,11 +55,11 @@ def kernel_route(dtype: torch.dtype, head_dim: int,
         raise ValueError(f"the kernel takes a head width that is a "
                          f"multiple of 8 up to {MAX_HEAD_DIM}, not "
                          f"{head_dim}")
-    if backward and head_dim > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"the flash-attention backward kernels take a head width up to "
-            f"{MAX_BWD_HEAD_DIM}, not {head_dim} (csrc/flash_attention.cu "
-            f"says why); a wider backward is open work (ROADMAP.md)")
+    limit = MAX_BWD_HEAD_DIM if backward else MAX_HEAD_DIM
+    if head_dim > limit:
+        raise ValueError(f"the {'backward' if backward else 'forward'} "
+                         f"kernels take a head width up to {limit}, not "
+                         f"{head_dim}")
     return ROUTES[dtype][0]
 
 
@@ -158,7 +158,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        window=window, q_chunk=q_chunk,
                                        kv_chunk=kv_chunk)
-    entry = _entry(q, backward=True)      # raises before any launch
+    entry = _entry(q, backward=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     dvec = torch.empty_like(lse)

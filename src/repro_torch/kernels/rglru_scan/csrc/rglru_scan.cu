@@ -1,5 +1,5 @@
-// RG-LRU linear scan, forward, for Hopper (sm_90a), fed by a ring of
-// asynchronous copies.
+// RG-LRU linear scan, forward and backward, for Hopper (sm_90a); the
+// forward is fed by a ring of asynchronous copies.
 //
 // Replaces the TPU kernel `rglru_scan_pallas`
 // (src/repro/kernels/rglru_scan/rglru_scan.py:54, body `rglru_scan_kernel`
@@ -49,6 +49,25 @@
 // one) run `rglru_scan_rows_kernel`, the first design: the same chain, fed
 // by registers that hold the next 16 steps' loads; it is bound by one
 // memory round trip per 16 steps.
+
+// The backward (`rglru_scan_bwd_kernel`) replaces what the reference
+// differentiates, `jax.lax.associative_scan` (src/repro/models/rglru.py:46):
+// no Pallas kernel has a backward.  It is the reverse linear scan, per
+// channel, from the gradients of out and of h_last:
+//
+//   g_t = dout_t + a_{t+1} ⊙ g_{t+1}   (g_{S-1} = dout_{S-1} + dh_last)
+//   da_t = g_t ⊙ h_{t-1}  (h_{-1} = 0),   db_t = g_t
+//
+// each product and sum rounded to float32 in that order (__fmul_rn,
+// __fadd_rn), as the plain version (ref.py::rglru_bwd_ref) takes them, so
+// the two agree bit for bit.  h is the forward's float32 output where a
+// is float32; for bfloat16 inputs (whose output is rounded) a first pass of
+// the same thread recomputes h in float32 into a scratch tensor.  What
+// bounds it: bytes.  At the training path's shape (rows, 1024, 2560) in
+// float32 it reads a, h and dout and writes da and db, 5 tensors of
+// B·S·D float32; the steps of a channel form a chain, so each thread loads
+// kBwdSteps steps of its three inputs into registers before it runs them:
+// one thread a channel, 64 a block, as the forward's rows kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -243,6 +262,78 @@ cudaError_t launch(const void* a, const void* b, void* out, void* h_last,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// backward: one thread a channel (b, d), steps from last to first
+// ------------------------------------------------------------------------
+constexpr int kBwdThreads = 64;       // channels a block of the backward
+constexpr int kBwdSteps = 16;         // steps each thread loads at once
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+rglru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      float* __restrict__ h, const T* __restrict__ dout,
+                      const float* __restrict__ dh_last, T* __restrict__ da,
+                      T* __restrict__ db, int S, int D, int recompute) {
+  const int d = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (d >= D) return;
+  const int64_t off = (int64_t)blockIdx.y * S * D + d;
+  if (recompute) {                      // h_t in float32, into the scratch
+    float hf = 0.f;
+    for (int t0 = 0; t0 < S; t0 += kBwdSteps) {
+      float ra[kBwdSteps], rb[kBwdSteps];
+#pragma unroll
+      for (int j = 0; j < kBwdSteps; ++j) {
+        const int t = t0 + j;
+        ra[j] = t < S ? to_f(a[off + (int64_t)t * D]) : 1.f;
+        rb[j] = t < S ? to_f(b[off + (int64_t)t * D]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBwdSteps; ++j) {
+        hf = step(ra[j], hf, rb[j]);
+        if (t0 + j < S) h[off + (int64_t)(t0 + j) * D] = hf;
+      }
+    }
+  }
+  float g = dh_last ? dh_last[(int64_t)blockIdx.y * D + d] : 0.f;
+  float a_next = 1.f;                   // a_{t+1}; 1 seeds g with dh_last
+  const int n_tiles = (S + kBwdSteps - 1) / kBwdSteps;
+  for (int c = n_tiles - 1; c >= 0; --c) {
+    const int t0 = c * kBwdSteps;
+    float ra[kBwdSteps], rh[kBwdSteps], rg[kBwdSteps];
+#pragma unroll
+    for (int j = 0; j < kBwdSteps; ++j) {
+      const int t = t0 + j;
+      const int64_t i = off + (int64_t)t * D;
+      ra[j] = t < S ? to_f(a[i]) : 1.f;
+      rg[j] = t < S ? to_f(dout[i]) : 0.f;
+      rh[j] = t < S && t > 0 ? h[i - D] : 0.f;
+    }
+#pragma unroll
+    for (int j = kBwdSteps - 1; j >= 0; --j) {
+      const int t = t0 + j;
+      if (t >= S) continue;
+      g = step(a_next, g, rg[j]);       // dout_t + a_{t+1}·g_{t+1}
+      db[off + (int64_t)t * D] = from_f<T>(g);
+      da[off + (int64_t)t * D] = from_f<T>(__fmul_rn(g, rh[j]));
+      a_next = ra[j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* a, const void* b, void* h,
+                       const void* dout, const void* dh_last, void* da,
+                       void* db, int B, int S, int D, int recompute,
+                       cudaStream_t stream) {
+  const dim3 grid((D + kBwdThreads - 1) / kBwdThreads, B);
+  rglru_scan_bwd_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<float*>(h), static_cast<const T*>(dout),
+      static_cast<const float*>(dh_last), static_cast<T*>(da),
+      static_cast<T*>(db), S, D, recompute);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,6 +350,29 @@ int rglru_scan_fwd(int dtype, const void* a, const void* b, void* out,
     return (int)launch<float>(a, b, out, h_last, B, S, D, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(a, b, out, h_last, B, S, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dtype of a, b, dout, da and db as above; h (B, S, D) and
+// dh_last (B, D) float32, dh_last may be null (a zero gradient).  With
+// recompute = 0, h holds the forward's states (a float32 forward's out);
+// with recompute = 1 it is scratch that the kernel fills from a and b
+// first.  `device` is made current first: autograd runs the backward on a
+// thread of its own.  Returns a cudaError_t (0 = success).
+int rglru_scan_bwd(int dtype, const void* a, const void* b, void* h,
+                   const void* dout, const void* dh_last, void* da, void* db,
+                   int B, int S, int D, int recompute, int device,
+                   void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (B < 1 || B > 65535 || S < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch_bwd<float>(a, b, h, dout, dh_last, da, db, B, S, D,
+                                  recompute, st);
+  if (dtype == 1)
+    return (int)launch_bwd<__nv_bfloat16>(a, b, h, dout, dh_last, da, db, B,
+                                          S, D, recompute, st);
   return (int)cudaErrorInvalidValue;
 }
 

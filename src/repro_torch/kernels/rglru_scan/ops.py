@@ -1,12 +1,15 @@
-"""Wrapper of the RG-LRU scan kernel: ``h_t = a_t ⊙ h_{t-1} + b_t``,
-forward only.
+"""Wrapper of the RG-LRU scan kernels: ``h_t = a_t ⊙ h_{t-1} + b_t``,
+forward and backward, as a ``torch.autograd.Function``.
 
-``rglru_scan(a, b)`` launches the hand-written kernel of
+``rglru_scan(a, b)`` launches the hand-written kernels of
 ``csrc/rglru_scan.cu`` (built with nvcc at first use) on the current stream
-for CUDA tensors, or raises; for CPU tensors it computes the plain version
-(:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref`).
-``rglru_scan.launches`` counts the kernel's launches, not the CPU path's
-calls.
+for CUDA tensors, or raises; for CPU tensors it computes the plain versions
+(:func:`~repro_torch.kernels.rglru_scan.ref.rglru_ref` forward,
+:func:`~repro_torch.kernels.rglru_scan.ref.rglru_bwd_ref` backward).
+``rglru_scan.launches`` and ``.bwd_launches`` count the kernels' launches,
+not the CPU path's calls.  A float32 forward saves its output, which is
+the states the backward needs; a bfloat16 one saves a and b, and the
+backward kernel recomputes the states in float32.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import load_library
-from .ref import rglru_ref
+from .ref import rglru_bwd_ref, rglru_ref
 
-__all__ = ["SOURCE", "rglru_ref", "rglru_scan", "smem_bytes"]
+__all__ = ["SOURCE", "rglru_bwd", "rglru_bwd_ref", "rglru_ref", "rglru_scan",
+           "smem_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 
@@ -32,6 +36,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(str(SOURCE))
     lib.rglru_scan_fwd.argtypes = [_I] + [_P] * 4 + [_I] * 3 + [_P]
     lib.rglru_scan_fwd.restype = _I
+    lib.rglru_scan_bwd.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_P]
+    lib.rglru_scan_bwd.restype = _I
     lib.rglru_scan_smem_bytes.argtypes = [_I]
     lib.rglru_scan_smem_bytes.restype = _I
     lib.rglru_scan_error_string.argtypes = [_I]
@@ -59,21 +65,69 @@ def _check(a, b) -> None:
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
     """a, b: (B, S, D), one type (float32 or bfloat16), contiguous, on one
     device.  Returns ``(out (B, S, D) in a's type, h_last (B, D) float32)``
-    of the recurrence from a zero state.  On the card the call is
-    forward-only and refuses inputs that need a gradient; on the CPU the
-    plain recurrence is differentiable."""
+    of the recurrence from a zero state; differentiable in a and b."""
     _check(a, b)
-    if a.device.type == "cpu":
-        return rglru_ref(a, b)
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        raise NotImplementedError(
-            "the RG-LRU scan kernel is forward-only: training a 'rec' layer "
-            "on the card needs a backward kernel, a reverse linear scan "
-            "(ROADMAP.md)")
-    return _launch(a, b)
+    return _RGLRUScan.apply(a, b)
 
 
 rglru_scan.launches = 0
+rglru_scan.bwd_launches = 0
+
+
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        out, h_last = rglru_ref(a, b) if a.device.type == "cpu" else \
+            _launch(a, b)
+        if a.dtype == torch.float32:     # out is the float32 states
+            ctx.save_for_backward(a, out)
+        else:
+            ctx.save_for_backward(a, b)
+        ctx.set_materialize_grads(False)
+        return out, h_last
+
+    @staticmethod
+    def backward(ctx, dout, dh_last):
+        a, x = ctx.saved_tensors
+        h, b = (x, None) if a.dtype == torch.float32 else (None, x)
+        if dout is None:
+            dout = torch.zeros_like(a)
+        return rglru_bwd(a, b, dout.to(a.dtype).contiguous(), dh_last, h)
+
+
+def rglru_bwd(a, b, dout, dh_last=None, h=None) -> tuple:
+    """The gradients ``(da, db)`` in a's type of :func:`rglru_scan`, given
+    those of its outputs (``dh_last`` may be None) and its float32 states
+    ``h`` (or None, when ``b`` is given: they are recomputed).  The kernel
+    for CUDA tensors, counted in ``rglru_scan.bwd_launches``; the plain
+    :func:`rglru_bwd_ref` for CPU tensors."""
+    if a.device.type == "cpu":
+        return rglru_bwd_ref(a, b, dout, dh_last, h)
+    B, S, D = a.shape
+    if dout.shape != a.shape or dout.dtype != a.dtype or \
+            not dout.is_contiguous():
+        raise ValueError(f"dout: want a contiguous {tuple(a.shape)} "
+                         f"{a.dtype} tensor, got {tuple(dout.shape)} "
+                         f"{dout.dtype}")
+    if dh_last is not None:
+        dh_last = dh_last.float().contiguous()
+    recompute = h is None
+    if recompute:
+        h = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    lib = _library()
+    err = lib.rglru_scan_bwd(
+        _DTYPES[a.dtype], a.data_ptr(), 0 if b is None else b.data_ptr(),
+        h.data_ptr(), dout.data_ptr(),
+        0 if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
+        db.data_ptr(), B, S, D, int(recompute), a.device.index,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "
+                           f"{err} "
+                           f"({lib.rglru_scan_error_string(err).decode()})")
+    rglru_scan.bwd_launches += 1
+    return da, db
 
 
 def _launch(a, b):

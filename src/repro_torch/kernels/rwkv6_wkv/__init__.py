@@ -1,4 +1,4 @@
-from .ops import wkv
-from .ref import wkv_ref
+from .ops import wkv, wkv_bwd
+from .ref import wkv_bwd_ref, wkv_ref
 
-__all__ = ["wkv", "wkv_ref"]
+__all__ = ["wkv", "wkv_bwd", "wkv_bwd_ref", "wkv_ref"]

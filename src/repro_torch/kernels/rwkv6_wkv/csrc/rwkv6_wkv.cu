@@ -1,5 +1,6 @@
-// RWKV6 WKV recurrence, forward, for Hopper (sm_90a): an exact chunked form
-// whose steps inside a chunk run in parallel.
+// RWKV6 WKV recurrence, forward and backward, for Hopper (sm_90a): the
+// forward an exact chunked form whose steps inside a chunk run in
+// parallel, the backward a reverse sweep over recomputed states.
 //
 // Replaces the TPU kernel `wkv_pallas`
 // (src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76, body `wkv_kernel` :29).  It
@@ -85,6 +86,43 @@
 //     the second half fill it with no tensor map and no barrier protocol; a
 //     ragged last chunk copies only its rows, and never reads past its
 //     (batch, head) row.
+
+//
+// The backward (`wkv_bwd_kernel`) replaces what the reference
+// differentiates, its plain-JAX `wkv_chunked` (src/repro/models/rwkv6.py:54;
+// the Pallas kernel has no backward).  From the gradients of out and of
+// S_last, a reverse sweep carries dS (K x V float32, seeded by dS_last);
+// with G = r_t ⊗ do_t and kv = k_t ⊗ v_t, each step takes what autograd of
+// the step takes, in its order:
+//
+//   dr_t[k] = Σ_j do_t[j]·(S_{t-1}[k,j] + u[k]·kv[k,j])
+//   gkv     = u[k]·G[k,j] + dS_t[k,j]
+//   dk_t[k] = Σ_j gkv[k,j]·v_t[j],   dv_t[j] = Σ_k gkv[k,j]·k_t[k]
+//   dw_t[k] = Σ_j dS_t[k,j]·S_{t-1}[k,j]
+//   du[k]  += Σ_j G[k,j]·kv[k,j]            (over time and batch)
+//   dS_{t-1} = diag(w_t)·dS_t + G
+//
+// (ref.py::wkv_bwd_ref writes it out in plain torch).  It needs S_{t-1}
+// at every step, backwards: one block of 256 threads per (batch, head)
+// runs the recurrence forward once and keeps the state before every chunk
+// of kBwdL = 16 steps in device memory (a float32 K x V a chunk: 1 GB for
+// 30 sequences x 32 heads x 1,024 steps at K = V = 64, one layer's at a
+// time).  Then, chunk by chunk from the last, it recomputes the chunk's
+// states from its checkpoint twice: once keeping the state before each of
+// its four sub-chunks of 4 steps in shared memory (64 KB at K = V = 64),
+// then, sub-chunk by sub-chunk from the last, its 4 states into
+// registers, which the sweep back reads.  (The first design kept the 16
+// states of a chunk in a device-memory scratch of its own: 32 KB moved a
+// step and block, 31 GB a call at the path's shape, and 13.4 ms.)  A
+// thread holds V/(256/K) entries of one row k of S and of dS: the sums over
+// j are shuffles among the row's threads; the sums over k for dv a
+// reduce-scatter among a warp's rows (each round halves what a lane
+// keeps), then the 8 warps' partials summed in shared memory in a fixed
+// order.  du is summed over time in each block, then over the batch by
+// `wkv_bwd_du_kernel` in a fixed order: no atomics.  Products of w only,
+// no exp or log.  What bounds it: the chain of steps a block runs, each
+// a few dependent shuffle rounds and some 7·V/(256/K) FMAs a thread; two
+// blocks an SM hide each other's latency.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -652,6 +690,283 @@ cudaError_t dispatch_dtype(int dtype, int K, int V, F f) {
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------------------
+// backward: one block per (batch, head), a reverse sweep over chunks of
+// kBwdL steps whose states are recomputed from checkpoints
+// ------------------------------------------------------------------------
+constexpr int kBwdL = 16;
+
+__device__ __forceinline__ float cvt_out(float x, float*) { return x; }
+__device__ __forceinline__ __nv_bfloat16 cvt_out(float x, __nv_bfloat16*) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, int K_, int V_>
+struct BwdCfg {
+  static constexpr int K = K_, V = V_, L = kBwdL;
+  static constexpr int SUB = 4, NSUB = L / SUB;  // sub-chunks of a chunk
+  static constexpr int TPR = kThreads / K;       // threads a row of S
+  static constexpr int CPT = V / TPR;            // its columns a thread
+  static constexpr int RB = 32 / TPR;            // rows a warp holds
+  static constexpr int NW = kThreads / 32;       // warps
+  static_assert(TPR <= 32 && CPT >= 1, "a row's threads share one warp");
+  // floats: r, k, w (L x K); v, do (L x V); u (K); staged dr, dk, dw
+  // (L x K); the warps' dv partials of a sub-chunk (SUB x NW x V); the
+  // state before each sub-chunk (NSUB x K x V)
+  static constexpr int SMEM = 4 * (6 * L * K + 2 * L * V + K + SUB * NW * V +
+                                   NSUB * K * V);
+};
+
+template <typename T, int K, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ w,
+               const T* __restrict__ u, const T* __restrict__ dout,
+               const float* __restrict__ ds_last, T* __restrict__ dr,
+               T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ dw, float* __restrict__ du_part,
+               float* __restrict__ ckpt, int H, int S) {
+  using C = BwdCfg<T, K, V>;
+  constexpr int L = C::L, SUB = C::SUB, NSUB = C::NSUB, TPR = C::TPR;
+  constexpr int CPT = C::CPT, RB = C::RB, NW = C::NW;
+  extern __shared__ __align__(16) float sm[];
+  float* sr = sm;
+  float* sk = sr + L * K;
+  float* sw = sk + L * K;
+  float* sv = sw + L * K;
+  float* sdo = sv + L * V;
+  float* su = sdo + L * V;
+  float* odr = su + K;
+  float* odk = odr + L * K;
+  float* odw = odk + L * K;
+  float* red = odw + L * K;
+  float* sub = red + SUB * NW * V;
+
+  const int tid = threadIdx.x, bh = blockIdx.x, hh = bh % H;
+  const int row = tid / TPR, cg = tid % TPR, j0 = cg * CPT;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_chunks = (S + L - 1) / L;
+  const int64_t kb = (int64_t)bh * S * K, vb = (int64_t)bh * S * V;
+  for (int i = tid; i < K; i += kThreads) su[i] = to_f(u[hh * K + i]);
+
+  // chunk c's rows into shared memory (zeros past S); with_rdo: r and do
+  // too, which the forward pass does not need
+  auto load = [&](int c, bool with_rdo) {
+    const int t0 = c * L, n = min(L, S - t0);
+    for (int i = tid; i < L * K; i += kThreads) {
+      const bool in = i < n * K;
+      const int64_t g = kb + (int64_t)t0 * K + i;
+      sk[i] = in ? to_f(k[g]) : 0.f;
+      sw[i] = in ? w[g] : 0.f;
+      if (with_rdo) sr[i] = in ? to_f(r[g]) : 0.f;
+    }
+    for (int i = tid; i < L * V; i += kThreads) {
+      const bool in = i < n * V;
+      const int64_t g = vb + (int64_t)t0 * V + i;
+      sv[i] = in ? to_f(v[g]) : 0.f;
+      if (with_rdo) sdo[i] = in ? to_f(dout[g]) : 0.f;
+    }
+  };
+  // one step of the state: S <- diag(w_s) S + k_s ⊗ v_s, this thread's
+  // entries
+  auto advance = [&](float* st, int s) {
+    const float wk = sw[s * K + row], kk = sk[s * K + row];
+#pragma unroll
+    for (int e = 0; e < CPT; ++e)
+      st[e] = fmaf(wk, st[e], kk * sv[s * V + j0 + e]);
+  };
+
+  // pass 1: the state before each chunk
+  float st[CPT];
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) st[e] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    float* ck = ckpt + ((int64_t)bh * n_chunks + c) * CPT * kThreads + tid;
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) ck[e * kThreads] = st[e];
+    if (c == n_chunks - 1) break;
+    __syncthreads();
+    load(c, false);
+    __syncthreads();
+    for (int s = 0; s < L; ++s) advance(st, s);
+  }
+
+  // pass 2: chunks from the last.  A chunk's states are recomputed from
+  // its checkpoint twice: first to keep the state before each sub-chunk of
+  // SUB steps in shared memory (each thread its own entries), then, from
+  // the last sub-chunk, into registers, which the sweep reads back
+  float ds[CPT];
+#pragma unroll
+  for (int e = 0; e < CPT; ++e)
+    ds[e] = ds_last ? ds_last[(int64_t)bh * K * V + row * V + j0 + e] : 0.f;
+  float du_acc = 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * L, n = min(L, S - t0);
+    __syncthreads();                    // the last chunk's readers are done
+    load(c, true);
+    __syncthreads();
+    const float* ck = ckpt + ((int64_t)bh * n_chunks + c) * CPT * kThreads +
+                      tid;
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) st[e] = ck[e * kThreads];
+    for (int q = 0; q < NSUB; ++q) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) sub[(q * CPT + e) * kThreads + tid] = st[e];
+      if (q + 1 < NSUB && (q + 1) * SUB < n) {
+#pragma unroll
+        for (int i = 0; i < SUB; ++i) advance(st, q * SUB + i);
+      }
+    }
+    for (int q = NSUB - 1; q >= 0; --q) {
+      if (q * SUB >= n) continue;
+      float sp[SUB][CPT];               // S_{t-1} of the sub-chunk's steps
+#pragma unroll
+      for (int e = 0; e < CPT; ++e)
+        sp[0][e] = sub[(q * CPT + e) * kThreads + tid];
+#pragma unroll
+      for (int i = 1; i < SUB; ++i) {
+#pragma unroll
+        for (int e = 0; e < CPT; ++e) sp[i][e] = sp[i - 1][e];
+        advance(sp[i], q * SUB + i - 1);
+      }
+#pragma unroll
+      for (int i = SUB - 1; i >= 0; --i) {
+        const int s = q * SUB + i;
+        if (s >= n) continue;
+        const float rk = sr[s * K + row], kk = sk[s * K + row];
+        const float wk = sw[s * K + row], uk = su[row];
+        const float* dos = sdo + s * V + j0;
+        const float* vs = sv + s * V + j0;
+        float pr = 0.f, pk = 0.f, pw = 0.f, pu = 0.f, cv[CPT];
+#pragma unroll
+        for (int e = 0; e < CPT; ++e) {
+          const float kv = kk * vs[e], g = rk * dos[e];
+          const float gkv = fmaf(uk, g, ds[e]);
+          pr = fmaf(dos[e], fmaf(uk, kv, sp[i][e]), pr);
+          pk = fmaf(gkv, vs[e], pk);
+          pw = fmaf(ds[e], sp[i][e], pw);
+          pu = fmaf(g, kv, pu);
+          cv[e] = gkv * kk;
+          ds[e] = fmaf(wk, ds[e], g);
+        }
+#pragma unroll
+        for (int o = TPR / 2; o > 0; o >>= 1) {   // over the row's threads
+          pr += __shfl_xor_sync(0xffffffffu, pr, o);
+          pk += __shfl_xor_sync(0xffffffffu, pk, o);
+          pw += __shfl_xor_sync(0xffffffffu, pw, o);
+          pu += __shfl_xor_sync(0xffffffffu, pu, o);
+        }
+        if (cg == 0) {
+          odr[s * K + row] = pr;
+          odk[s * K + row] = pk;
+          odw[s * K + row] = pw;
+          du_acc += pu;
+        }
+        // cv over the warp's rows; the warp's partial of column j to
+        // red[i][warp][j]
+        float* rw = red + (i * NW + warp) * V + j0;
+        if constexpr (CPT >= RB) {
+          // reduce-scatter: each round halves what a lane keeps, so each
+          // of the RB lanes of a column group ends with CPT / RB sums
+          int off = 0;
+#pragma unroll
+          for (int m = TPR, h = CPT / 2; m < 32; m <<= 1, h >>= 1) {
+            const bool up = lane & m;
+#pragma unroll
+            for (int e = 0; e < h; ++e) {
+              const float give = up ? cv[e] : cv[e + h];
+              const float keep = up ? cv[e + h] : cv[e];
+              cv[e] = keep + __shfl_xor_sync(0xffffffffu, give, m);
+            }
+            if (up) off += h;
+          }
+#pragma unroll
+          for (int e = 0; e < CPT / RB; ++e) rw[off + e] = cv[e];
+        } else {
+#pragma unroll
+          for (int o = TPR; o < 32; o <<= 1)
+#pragma unroll
+            for (int e = 0; e < CPT; ++e)
+              cv[e] += __shfl_xor_sync(0xffffffffu, cv[e], o);
+          if (lane < TPR) {
+#pragma unroll
+            for (int e = 0; e < CPT; ++e) rw[e] = cv[e];
+          }
+        }
+      }
+      __syncthreads();                  // the sub-chunk's dv partials
+      const int m = min(SUB, n - q * SUB);
+      for (int x = tid; x < m * V; x += kThreads) {
+        const int i = x / V, j = x - i * V;
+        float a = 0.f;
+#pragma unroll
+        for (int w_ = 0; w_ < NW; ++w_) a += red[(i * NW + w_) * V + j];
+        dv[vb + (int64_t)(t0 + q * SUB) * V + x] = cvt_out(a, dv);
+      }
+      __syncthreads();                  // before red is written again
+    }
+    for (int x = tid; x < n * K; x += kThreads) {  // ordered by the last
+      const int64_t g = kb + (int64_t)t0 * K + x;  // barrier above
+      dr[g] = cvt_out(odr[x], dr);
+      dk[g] = cvt_out(odk[x], dk);
+      dw[g] = odw[x];
+    }
+  }
+  if (cg == 0) du_part[(int64_t)bh * K + row] = du_acc;
+}
+
+// du[h, k] = Σ_b du_part[b, h, k], b in order
+template <typename T>
+__global__ void wkv_bwd_du_kernel(const float* __restrict__ du_part,
+                                  T* __restrict__ du, int B, int HK) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= HK) return;
+  float a = 0.f;
+  for (int b = 0; b < B; ++b) a += du_part[(int64_t)b * HK + i];
+  du[i] = cvt_out(a, du);
+}
+
+struct BwdArgs {
+  const void *r, *k, *v, *w, *u, *dout, *ds_last;
+  void *dr, *dk, *dv, *dw, *du, *du_part, *ckpt;
+  int B, H, S;
+  cudaStream_t stream;
+};
+
+template <typename T, int K, int V>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  using C = BwdCfg<T, K, V>;
+  auto kernel = wkv_bwd_kernel<T, K, V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.B * a.H, kThreads, C::SMEM, a.stream>>>(
+      static_cast<const T*>(a.r), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.w),
+      static_cast<const T*>(a.u), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.ds_last), static_cast<T*>(a.dr),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<float*>(a.dw), static_cast<float*>(a.du_part),
+      static_cast<float*>(a.ckpt), a.H, a.S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int hk = a.H * K;
+  wkv_bwd_du_kernel<T><<<(hk + 255) / 256, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.du_part), static_cast<T*>(a.du), a.B, hk);
+  return cudaGetLastError();
+}
+
+// the backward's instances: every (K, V) of the forward's
+template <typename T>
+cudaError_t dispatch_bwd(int K, int V, const BwdArgs& a) {
+#define WKV_BWD_CASE(KK, VV) \
+  if (K == KK && V == VV) return launch_bwd<T, KK, VV>(a);
+  WKV_BWD_CASE(16, 16) WKV_BWD_CASE(16, 32) WKV_BWD_CASE(16, 64)
+  WKV_BWD_CASE(32, 16) WKV_BWD_CASE(32, 32) WKV_BWD_CASE(32, 64)
+  WKV_BWD_CASE(64, 16) WKV_BWD_CASE(64, 32) WKV_BWD_CASE(64, 64)
+#undef WKV_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -670,6 +985,27 @@ int wkv_fwd(int dtype, const void* r, const void* k, const void* v,
   return (int)dispatch_dtype(dtype, K, V, [&](auto* cfg) {
     return launch<std::remove_pointer_t<decltype(cfg)>>(a);
   });
+}
+
+// The backward of `wkv_fwd` from its inputs and the gradients of its
+// outputs: dout (B, H, S, V) in r's type, ds_last (B, H, K, V) float32 or
+// null (a zero gradient).  Writes dr, dk (B, H, S, K), dv (B, H, S, V)
+// and du (H, K) in r's type, dw (B, H, S, K) float32.  Scratch, float32:
+// du_part (B, H, K) and ckpt (B, H, ceil(S / 16), K, V).  `device` is
+// made current first: autograd runs the backward on a thread of its own.
+// Returns a cudaError_t (0 = success).
+int wkv_bwd(int dtype, const void* r, const void* k, const void* v,
+            const void* w, const void* u, const void* dout,
+            const void* ds_last, void* dr, void* dk, void* dv, void* dw,
+            void* du, void* du_part, void* ckpt, int B, int H, int S, int K,
+            int V, int device, void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (B < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{r,  k,  v,  w,  u,       dout, ds_last, dr, dk, dv,
+                  dw, du, du_part, ckpt, B, H,  S,      (cudaStream_t)stream};
+  if (dtype == 0) return (int)dispatch_bwd<float>(K, V, a);
+  if (dtype == 1) return (int)dispatch_bwd<__nv_bfloat16>(K, V, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the dynamic shared memory a block of the (K, V) instance takes, or -1

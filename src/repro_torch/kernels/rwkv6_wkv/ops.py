@@ -1,11 +1,14 @@
-"""Wrapper of the RWKV6 WKV kernel: the exact recurrence in chunks, forward
-only.
+"""Wrapper of the RWKV6 WKV kernels: the exact recurrence in chunks, and
+its backward, as a ``torch.autograd.Function``.
 
-``wkv(r, k, v, w, u)`` launches the hand-written kernel of
+``wkv(r, k, v, w, u)`` launches the hand-written kernels of
 ``csrc/rwkv6_wkv.cu`` (built with nvcc at first use) on the current stream
-for CUDA tensors, or raises; for CPU tensors it computes the plain version
-(:func:`~repro_torch.kernels.rwkv6_wkv.ref.wkv_ref`).  ``wkv.launches``
-counts the kernel's launches, not the CPU path's calls.
+for CUDA tensors, or raises; for CPU tensors it computes the plain versions
+(:func:`~repro_torch.kernels.rwkv6_wkv.ref.wkv_ref` forward,
+:func:`~repro_torch.kernels.rwkv6_wkv.ref.wkv_bwd_ref` backward).
+``wkv.launches`` and ``wkv.bwd_launches`` count the kernels' launches,
+not the CPU path's calls.  The forward saves its inputs; the backward
+kernel recomputes the states from them.
 """
 from __future__ import annotations
 
@@ -16,14 +19,17 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import load_library
-from .ref import wkv_ref
+from .ref import wkv_bwd_ref, wkv_ref
 
-__all__ = ["HEAD_DIMS", "SOURCE", "smem_bytes", "wkv", "wkv_ref"]
+__all__ = ["BWD_CHUNK", "HEAD_DIMS", "SOURCE", "smem_bytes", "wkv",
+           "wkv_bwd", "wkv_bwd_ref", "wkv_ref"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 
-#: The head widths (K and V) the kernel is built for.
+#: The head widths (K and V) the kernels are built for.
 HEAD_DIMS = (16, 32, 64)
+#: Steps between the backward kernel's state checkpoints (``kBwdL``).
+BWD_CHUNK = 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,6 +40,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(str(SOURCE))
     lib.wkv_fwd.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_P]
     lib.wkv_fwd.restype = _I
+    lib.wkv_bwd.argtypes = [_I] + [_P] * 14 + [_I] * 6 + [_P]
+    lib.wkv_bwd.restype = _I
     lib.wkv_smem_bytes.argtypes = [_I] * 3
     lib.wkv_smem_bytes.restype = _I
     lib.wkv_error_string.argtypes = [_I]
@@ -74,21 +82,68 @@ def wkv(r, k, v, w, u, *, chunk: int = 32):
     Returns ``(out (B, H, S, V) in r's type, S_last (B, H, K, V) float32)``
     of the recurrence from a zero state.  ``chunk`` is the TPU kernel's
     tiling, kept for its signature: the kernel's own chunk is 16 steps
-    whatever it says.  On the card the call is forward-only and refuses
-    inputs that need a gradient; on the CPU the plain recurrence is
-    differentiable."""
+    whatever it says.  Differentiable in r, k, v, w and u."""
     _check(r, k, v, w, u)
-    if r.device.type == "cpu":
-        return wkv_ref(r, k, v, w, u)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u)):
-        raise NotImplementedError(
-            "the WKV kernel is forward-only: training through it needs a "
-            "backward kernel, which the reference lacks too (ROADMAP.md)")
-    return _launch(r, k, v, w, u)
+    return _WKV.apply(r, k, v, w, u)
 
 
 wkv.launches = 0
+wkv.bwd_launches = 0
+
+
+class _WKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        out, s_last = wkv_ref(r, k, v, w, u) if r.device.type == "cpu" \
+            else _launch(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.set_materialize_grads(False)
+        return out, s_last
+
+    @staticmethod
+    def backward(ctx, dout, ds_last):
+        r, k, v, w, u = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros((*r.shape[:3], v.shape[3]), dtype=r.dtype,
+                               device=r.device)
+        return wkv_bwd(r, k, v, w, u, dout.to(r.dtype).contiguous(),
+                       ds_last)
+
+
+def wkv_bwd(r, k, v, w, u, dout, ds_last=None) -> tuple:
+    """The gradients ``(dr, dk, dv, dw, du)`` of :func:`wkv` from its
+    inputs and those of its outputs (``ds_last`` may be None): dw float32,
+    the others in r's type.  The kernel for CUDA tensors, counted in
+    ``wkv.bwd_launches``; the plain :func:`wkv_bwd_ref` for CPU tensors."""
+    if r.device.type == "cpu":
+        return wkv_bwd_ref(r, k, v, w, u, dout, ds_last)
+    B, H, S, K = r.shape
+    V = v.shape[3]
+    if tuple(dout.shape) != (B, H, S, V) or dout.dtype != r.dtype or \
+            not dout.is_contiguous():
+        raise ValueError(f"dout: want a contiguous {(B, H, S, V)} {r.dtype} "
+                         f"tensor, got {tuple(dout.shape)} {dout.dtype}")
+    if ds_last is not None:
+        ds_last = ds_last.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk = torch.empty_like(r), torch.empty_like(k)
+    dv, du = torch.empty_like(v), torch.empty_like(u)
+    dw = torch.empty_like(w)
+    du_part = torch.empty((B, H, K), **f32)
+    n_chunks = -(-S // BWD_CHUNK)
+    ckpt = torch.empty((B, H, n_chunks, K, V), **f32)
+    lib = _library()
+    err = lib.wkv_bwd(
+        _DTYPES[r.dtype], *(t.data_ptr() for t in (r, k, v, w, u, dout)),
+        0 if ds_last is None else ds_last.data_ptr(),
+        *(t.data_ptr() for t in (dr, dk, dv, dw, du, du_part, ckpt)),
+        B, H, S, K, V, r.device.index,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv backward launch failed: CUDA error {err} "
+                           f"({lib.wkv_error_string(err).decode()})")
+    wkv.bwd_launches += 1
+    return dr, dk, dv, dw, du
 
 
 def _launch(r, k, v, w, u):

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the RWKV6 WKV kernel.
+"""Plain PyTorch versions of the RWKV6 WKV kernels.
 
 ``wkv_ref`` is the sequential recurrence (as ``repro.kernels.rwkv6_wkv.ref``
 is the reference's ``wkv_sequential``): what the kernel is held to, and what
-``wkv`` computes for a CPU tensor.
+``wkv`` computes for a CPU tensor; ``wkv_bwd_ref`` is its written-out
+backward, what the backward kernel is held to and what ``wkv``'s backward
+computes for a CPU tensor.
 
 ``wkv_chunked_exact`` is the kernel's own algorithm written out in plain
 torch, so that its numerics can be checked on the CPU: tests use it, the
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.models.rwkv6 import wkv_sequential as wkv_ref
 
-__all__ = ["wkv_chunked_exact", "wkv_ref"]
+__all__ = ["wkv_bwd_ref", "wkv_chunked_exact", "wkv_ref"]
 
 
 def wkv_chunked_exact(r, k, v, w, u, chunk: int = 16):
@@ -65,3 +67,51 @@ def wkv_chunked_exact(r, k, v, w, u, chunk: int = 16):
         S = total[..., None] * S + torch.einsum("bhsk,bhsv->bhkv",
                                                 kc * suf, vc)
     return torch.cat(outs, 2).to(r.dtype), S
+
+
+def wkv_bwd_ref(r, k, v, w, u, dout, ds_last=None):
+    """The gradients ``(dr, dk, dv, dw, du)`` of :func:`wkv_ref` from a
+    zero state, given those of its outputs: ``dout`` (B, H, S, V) and
+    ``ds_last`` (B, H, K, V) or None (zero).  Float32 arithmetic; dw comes
+    back float32, the others in their inputs' types.  The states S_{t-1}
+    are taken forward first; then a reverse sweep carries dS (K x V),
+    seeded by ``ds_last``, and takes at each step what autograd of the
+    step takes, with G = r_t ⊗ do_t and kv = k_t ⊗ v_t:
+
+        dr_t = (S_{t-1} + u ⊙ kv)·do_t
+        gkv  = u ⊙ G + dS_t
+        dk_t = gkv·v_t,   dv_t = gkvᵀ·k_t
+        dw_t = Σ_j dS_t ⊙ S_{t-1}
+        du  += Σ_batch Σ_j G ⊙ kv
+        dS_{t-1} = diag(w_t) dS_t + G
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf, dof = (t.float() for t in (r, k, v, w, dout))
+    uf = u.float()[None, :, :, None]                       # (1, H, K, 1)
+    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+    states = []
+    for t in range(T):
+        states.append(S)
+        S = wf[:, :, t, :, None] * S + kf[:, :, t, :, None] * \
+            vf[:, :, t, None, :]
+    dS = (torch.zeros_like(S) if ds_last is None else
+          ds_last.float().clone())
+    dr, dk, dw = (torch.empty((B, H, T, K), dtype=torch.float32,
+                              device=r.device) for _ in range(3))
+    dv = torch.empty((B, H, T, V), dtype=torch.float32, device=r.device)
+    du = torch.zeros((H, K), dtype=torch.float32, device=r.device)
+    for t in range(T - 1, -1, -1):
+        r_t, k_t, v_t, w_t, do_t = (x[:, :, t] for x in (rf, kf, vf, wf, dof))
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        G = r_t[..., :, None] * do_t[..., None, :]
+        dr[:, :, t] = torch.einsum("bhkv,bhv->bhk", states[t] + uf * kv,
+                                   do_t)
+        gkv = uf * G + dS
+        dk[:, :, t] = torch.einsum("bhkv,bhv->bhk", gkv, v_t)
+        dv[:, :, t] = torch.einsum("bhkv,bhk->bhv", gkv, k_t)
+        dw[:, :, t] = (dS * states[t]).sum(-1)
+        du += (G * kv).sum((0, 3))
+        dS = w_t[..., None] * dS + G
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw,
+            du.to(u.dtype))

@@ -15,7 +15,20 @@ The coded path runs ``TwoStageRuntime`` over ``workers`` simulated
 heterogeneous workers and K = 2·workers partitions; each step trains on the
 epoch's slot batch through ``make_coded_train_step``, whose one backward
 over the weighted per-slot losses is the decoded full gradient.  The plain
-path is data-parallel SGD with AdamW and ``clip_norm`` 1.0.
+path is data-parallel SGD with AdamW and ``clip_norm`` 1.0.  Both steps
+are in place (``inplace=True``: AdamW's ``update_``), which frees each
+gradient leaf once applied: a functional update would hold old and new
+parameters and moments together, 12 more bytes a parameter.
+
+Every token-decoder family trains, the MoE configs too.  As in the
+reference, the coded per-slot loss is the cross-entropy alone (its
+``per_slot_lm_loss`` drops the MoE balance loss ``aux``) and the plain
+loss is ``transformer.loss_fn``, CE + 0.01·aux.  A coded aux could not
+decode to the full batch's: the slot batch holds redundant partitions
+twice and unused slots as zero tokens.  For the same reason an MoE layer's
+capacity, which counts the tokens of one forward, drops other tokens in
+the slot batch than in the K partitions, so the decoded gradient equals
+the full-batch one only where nothing is dropped.
 
 A checkpoint saved as step n holds the state after step n; a resumed run
 continues at step n + 1, replaying the runtime's host draws of steps 0..n
@@ -62,8 +75,10 @@ def _config(args) -> ModelConfig:
 
 
 def _token_ce(x, head, labels, w, dt):
-    """``w ⊙ CE`` of each token: x (n, d), labels (n,), w (n,)."""
-    logits = (x.to(dt) @ head).float()
+    """``w ⊙ CE`` of each token: x (n, d), labels (n,), w (n,); the head
+    is cast to ``dt`` here, so that its gradient sums the chunks in the
+    head's own type (float32), not in ``dt``."""
+    logits = (x.to(dt) @ head.to(dt)).float()
     ll = torch.gather(logits, -1, labels[:, None].long())[:, 0]
     return (torch.logsumexp(logits, dim=-1) - ll) * w
 
@@ -75,7 +90,10 @@ def per_slot_lm_loss(cfg: ModelConfig, chunk: int = CE_CHUNK):
     ``(M, n_slots, b, S)``.  A row's CE is its weighted mean, a slot's the
     mean of its b rows (zero for an unused slot, whose weights are zero).
     The logits never exist whole: each ``chunk`` of tokens is projected,
-    reduced and recomputed in the backward.
+    reduced and recomputed in the backward.  The reference projects all
+    tokens in one product, whose head gradient is rounded to the compute
+    type once; here each chunk's is, and the chunks sum in the head's own
+    type (float32 weights: float32), not in the compute type.
     """
     dt = tfm._dtype(cfg.compute_dtype)
 
@@ -86,7 +104,7 @@ def per_slot_lm_loss(cfg: ModelConfig, chunk: int = CE_CHUNK):
         x = x.reshape(-1, x.shape[-1])
         labels = batch["labels"].reshape(-1)
         w = batch["weights"].reshape(-1).float()
-        head = tfm._lm_head(params, cfg).to(dt)
+        head = tfm._lm_head(params, cfg)
         ce = torch.cat([
             checkpoint(_token_ce, x[i:i + chunk], head, labels[i:i + chunk],
                        w[i:i + chunk], dt, use_reentrant=False)
@@ -103,9 +121,11 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
           params=None, device="cuda", log=print) -> dict:
     """Train ``cfg`` for ``steps`` steps (the reference's loop).
 
-    ``params`` (moved to ``device``) default to
-    :func:`transformer.init_params` from seed 0 on ``device``.  Returns a dict: ``params`` and ``opt_state`` at the end,
-    ``start_step``, and per step run ``step``, ``loss`` and the host clock,
+    ``params`` (copied to ``device``: the steps write in place, never
+    into the caller's tensors) default to :func:`transformer.init_params`
+    from seed 0 on ``device``.  Returns a dict: ``params`` and
+    ``opt_state`` at the end, ``start_step``, and per step run ``step``,
+    ``loss`` and the host clock,
     synchronised with the card, in ms: ``plan_ms`` (the runtime's epoch),
     ``data_ms`` (drawing, stacking and copying the batch) and ``step_ms``
     (the train step).  The coded path adds ``sim_time``, ``n_slots``,
@@ -120,17 +140,13 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
     if cfg.family in ("vlm", "audio"):
         raise SystemExit("train driver covers LM families; use the smoke "
                          "tests for frontend-stub archs")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"training the MoE config {cfg.name} through train() is not "
-            f"ported yet: the reference's coded loss drops the balance loss "
-            f"(ROADMAP.md, queue 1 and section 3)")
     opt = adamw(lr=lr, state_dtype=getattr(torch, cfg.opt_state_dtype))
     if params is None:
         params = tfm.init_params(
             cfg, torch.Generator(device=device).manual_seed(0),
             device=device)
-    params = tree_map(lambda p: p.to(device), params)
+    else:                                  # the steps write in place
+        params = tree_map(lambda p: p.to(device, copy=True), params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     log(f"arch={cfg.name} params={n_params / 1e6:.1f}M coded={coded} "
         f"steps={steps}")
@@ -152,12 +168,13 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
                                   straggler_prob=straggler_prob, seed=0)
         for step in range(start):          # the runtime's host draws
             runtime.run_epoch(step)
-        step_fn = make_coded_train_step(per_slot_lm_loss(cfg), opt)
+        step_fn = make_coded_train_step(per_slot_lm_loss(cfg), opt,
+                                        inplace=True)
     else:
         ds = SyntheticLMDataset(1, examples_per_partition=batch,
                                 seq_len=seq, vocab=cfg.vocab, device="cpu")
         step_fn = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), opt,
-                                  clip_norm=1.0)
+                                  clip_norm=1.0, inplace=True)
 
     out = {k: [] for k in ("step", "loss", "plan_ms", "data_ms",
                            "step_ms")}

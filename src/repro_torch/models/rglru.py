@@ -9,8 +9,9 @@ channel, block-diagonal gate projections per head):
     h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
 The gates are plain PyTorch in float32, as the reference's; the scan is
-``repro_torch.kernels.rglru_scan``: the CUDA kernel on the card, the plain
-sequential recurrence on the CPU.  The reference scans with
+``repro_torch.kernels.rglru_scan``: the CUDA kernels on the card (its
+backward a reverse scan), the plain sequential recurrence and its
+written-out backward on the CPU.  The reference scans with
 ``jax.lax.associative_scan`` (log depth, another summation order), and
 takes the input scale sqrt(1 - a²) in forms that cancel where a is near 1
 (:func:`_input_scale`), so the two agree to float32 rounding except in

@@ -18,8 +18,11 @@ reference's layout too (one dict per group, leaves stacked on the layer
 axis).
 
 Layers run in a Python loop over the stacked axis (the reference scans
-them).  ``remat="full"`` wraps each layer unit in ``torch.utils.checkpoint``
-as the reference wraps its scan body in ``jax.checkpoint``; ``"dots"``
+them).  ``remat="full"`` wraps each layer in ``torch.utils.checkpoint``,
+where the reference wraps its scan body, a whole layer unit, in
+``jax.checkpoint``: the same values, but one layer's activations live at
+a time in the backward (gemma3-12b's unit is six layers, which at 30 x
+2,048 tokens would not fit beside its weights on one card).  ``"dots"``
 (save only the matrix products) has no torch counterpart and is mapped to
 the same full recompute, which changes memory and time, not the result.
 The cross-entropy is chunked over the sequence with each chunk
@@ -30,20 +33,21 @@ the backward.  The reference's sharding constraints and unroll switch
 counterpart here.
 
 The RWKV6 time mix runs the WKV recurrence through
-``repro_torch.kernels.rwkv6_wkv.wkv``: the CUDA kernel on the card, the
-plain sequential recurrence on the CPU.  The reference's ``wkv_chunked``
-is not ported (``models/rwkv6.py`` says why), so the port's prefill is
-exact where the reference's is not.  The kernel is forward-only:
-training an ``rwkv`` config on the card raises (the reference trains it
-through ``wkv_chunked``, whose backward has no kernel).
+``repro_torch.kernels.rwkv6_wkv.wkv``: the CUDA kernels (forward and
+backward) on the card, the plain sequential recurrence and its
+written-out backward on the CPU.  The reference's ``wkv_chunked`` is not
+ported (``models/rwkv6.py`` says why), so the port's prefill is exact
+where the reference's is not, and so is its gradient (the reference
+trains through autodiff of ``wkv_chunked``).
 
 The ``rec`` block (``_rec_train``) runs its scan through
 ``repro_torch.kernels.rglru_scan`` by way of ``models/rglru.py``: the CUDA
-kernel on the card, the plain recurrence on the CPU.  That kernel is
-forward-only too, so training a ``rec`` config on the card raises.  Its
-conv state keeps the last ``conv_width - 1`` pre-conv inputs, left-padded
-with zeros for a prompt shorter than that (the reference keeps fewer rows,
-and its decode step then fails on them).
+kernels (forward, and the reverse scan backward) on the card, the plain
+recurrence and its written-out backward on the CPU.  Its conv state keeps
+the last ``conv_width - 1`` pre-conv inputs, left-padded with zeros for a
+prompt shorter than that (the reference keeps fewer rows, and its decode
+step then fails on them).  Every family trains on the card
+(``launch/train.py``); attention's backward takes head widths up to 256.
 
 Every entry point sums the MoE balance loss ``aux`` over the layers as
 the reference does, and takes the reference's ``dp_shards`` (tokens are
@@ -638,30 +642,39 @@ def forward(params, batch, cfg: ModelConfig, *, dp_shards: int = 1,
     remat = cfg.remat in ("full", "dots") and not collect_cache
     aux, all_caches = None, []
     for g, gp in zip(group_layout(cfg), params["groups"]):
+        # remat checkpoints a layer at a time: a unit's layers (six in
+        # gemma3's) keep their activations together only outside remat
+        pieces = [({"l0": gp[f"l{j}"]}, (kind,))
+                  for j, kind in enumerate(g.kinds)] if remat else \
+            [(gp, g.kinds)]
         # one unbind per stacked leaf: its backward stacks the layers'
         # gradients once, where indexing would add a full-size zero
         # tensor per layer
-        layers = [torch.unbind(t) for t in tree_leaves(gp)]
+        split = [(tree, kinds, [torch.unbind(t) for t in tree_leaves(tree)])
+                 for tree, kinds in pieces]
 
-        def unit(x, *leaves, kinds=g.kinds, gp=gp):
-            up = _cast_unit(tree_unflatten(gp, list(leaves)), kinds, dt)
+        def unit(x, *leaves, tree, kinds):
+            up = _cast_unit(tree_unflatten(tree, list(leaves)), kinds, dt)
             return _apply_unit(x, up, cfg, kinds, positions,
                                collect=collect_cache, dp_shards=dp_shards)
 
-        def unit_x(x, *leaves, unit=unit):
-            return unit(x, *leaves)[:2]
+        def unit_x(x, *leaves, tree, kinds):
+            return unit(x, *leaves, tree=tree, kinds=kinds)[:2]
 
         caches = []
         for r in range(g.n_repeat):
-            leaves = [layer[r] for layer in layers]
-            if collect_cache:
-                x, aux_u, c = unit(x, *leaves)
-                caches.append(c)
-            elif remat:
-                x, aux_u = checkpoint(unit_x, x, *leaves,
-                                      use_reentrant=False)
-            else:
-                x, aux_u = unit_x(x, *leaves)
+            aux_u = None
+            for tree, kinds, layers in split:
+                leaves = [layer[r] for layer in layers]
+                if collect_cache:
+                    x, aux_p, c = unit(x, *leaves, tree=tree, kinds=kinds)
+                    caches.append(c)
+                elif remat:
+                    x, aux_p = checkpoint(unit_x, x, *leaves, tree=tree,
+                                          kinds=kinds, use_reentrant=False)
+                else:
+                    x, aux_p = unit_x(x, *leaves, tree=tree, kinds=kinds)
+                aux_u = _add(aux_u, aux_p)
             aux = _add(aux, aux_u)
         if collect_cache:
             all_caches.append(_stack(caches))

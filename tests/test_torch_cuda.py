@@ -334,15 +334,39 @@ def test_wkv_kernel_matches_plain_on_card(cuda_device, shape, w, dtype):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_wkv_kernel_refuses_what_needs_a_gradient(cuda_device):
-    from repro_torch.kernels.rwkv6_wkv import wkv
-    r, k, v, w, u = _wkv_inputs(cuda_device, (1, 1, 8, 16, 16), "float32")
-    before = wkv.launches
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        wkv(r.requires_grad_(True), k, v, w, u)
+@pytest.mark.parametrize("shape,w", [
+    ((1, 2, 64, 16, 16), None), ((2, 3, 1000, 64, 64), "path"),
+    ((1, 2, 77, 16, 64), None), ((1, 2, 100, 64, 32), "zeros"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_backward_kernel_matches_plain_on_card(cuda_device, shape, w,
+                                                   dtype):
+    """The WKV backward kernel through autograd (one backward launch)
+    against the written-out plain backward, a gradient of S_last too:
+    float32 within rtol 2e-4, atol 2e-4·max(1, max|grad|) (sums over K and
+    V in other orders, carried back by dS); bf16 gradients within 1e-2."""
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_bwd_ref
+    ins = _wkv_inputs(cuda_device, shape, dtype, w)
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    out, s_last = wkv(*leaves)
+    rng = np.random.default_rng(1)
+    dout = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(cuda_device, out.dtype)
+    ds = torch.from_numpy(rng.standard_normal(s_last.shape).astype(
+        np.float32)).to(cuda_device)
+    before = wkv.bwd_launches
+    torch.autograd.backward((out, s_last), (dout, ds))
+    torch.cuda.synchronize()
+    assert wkv.bwd_launches == before + 1
+    for x, want in zip(leaves, wkv_bwd_ref(*ins, dout, ds)):
+        assert x.grad.dtype == x.dtype == want.dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        tol = 1e-2 if x.dtype == torch.bfloat16 else 2e-4
+        np.testing.assert_allclose(x.grad.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol * scale)
     with pytest.raises(ValueError, match="K and V"):
         wkv(*_wkv_inputs(cuda_device, (1, 1, 8, 8, 8), "float32"))
-    assert wkv.launches == before
 
 
 def test_rwkv_model_on_card_matches_cpu_and_counts_launches(cuda_device):
@@ -420,15 +444,30 @@ def test_rglru_kernel_matches_plain_on_card(cuda_device, shape, a_lo, a_hi,
                                rtol=1e-5, atol=1e-5 * scale)
 
 
-def test_rglru_kernel_refuses_what_needs_a_gradient(cuda_device):
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    a, b = _scan_inputs(cuda_device, (1, 8, 16), "float32")
-    before = rglru_scan.launches
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        rglru_scan(a.requires_grad_(True), b)
+@pytest.mark.parametrize("shape", [(2, 128, 64), (3, 1000, 2500),
+                                   (2, 37, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_backward_kernel_matches_plain_on_card(cuda_device, shape,
+                                                     dtype):
+    """The RG-LRU backward kernel through autograd (one backward launch),
+    float32 with the forward's output as its states and bf16 with them
+    recomputed, equal to the written-out plain backward: both multiply,
+    then add, each rounded, in step order."""
+    from repro_torch.kernels.rglru_scan import rglru_bwd_ref, rglru_scan
+    a, b = _scan_inputs(cuda_device, shape, dtype)
+    leaves = [x.clone().requires_grad_(True) for x in (a, b)]
+    out, h_last = rglru_scan(*leaves)
+    dout, dh = _scan_inputs(cuda_device, shape, dtype, seed=1)[0], \
+        h_last.detach().clone().normal_()
+    before = rglru_scan.bwd_launches
+    torch.autograd.backward((out, h_last), (dout, dh))
+    torch.cuda.synchronize()
+    assert rglru_scan.bwd_launches == before + 1
+    for x, want in zip(leaves, rglru_bwd_ref(a, b, dout, dh)):
+        assert x.grad.dtype == want.dtype
+        assert torch.equal(x.grad, want)
     with pytest.raises(ValueError, match="contiguous"):
-        rglru_scan(a.detach().transpose(1, 2), b.transpose(1, 2))
-    assert rglru_scan.launches == before
+        rglru_scan(a.transpose(1, 2), b.transpose(1, 2))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -456,16 +495,35 @@ def test_flash_attention_head_dim_256_matches_plain_on_card(cuda_device,
                                rtol=1e-5, atol=1e-5)
 
 
-def test_flash_attention_backward_refuses_head_dim_256(cuda_device):
+@pytest.mark.parametrize("shape_q,window", [
+    ((1, 300, 1, 10, 256), 100),        # recurrentgemma: MQA, G = 10
+    ((1, 300, 2, 2, 256), 64),          # gemma3: GQA
+    ((1, 300, 2, 2, 256), 0),
+    ((2, 130, 2, 1, 192), 48),          # 3 boxes of 64 columns, ragged
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_head_dim_256_matches_plain_on_card(
+        cuda_device, shape_q, window, dtype):
+    """The attention backward above head width 128 (its blocks split the
+    output columns) against the plain version, on both routes."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_fwd)
-    q, k, v, do = _attention_inputs(cuda_device, (1, 64, 1, 2, 256),
-                                    (1, 64, 1, 256), "float32")
-    out, lse = flash_attention_fwd(q, k, v)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_fwd)
+    B, S, KV, G, D = shape_q
+    q, k, v, do = _attention_inputs(cuda_device, shape_q, (B, S, KV, D),
+                                    dtype)
+    kw = dict(causal=True, window=window, q_chunk=64, kv_chunk=64)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
     before = flash_attention.bwd_launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_bwd(q, k, v, out, lse, do)
-    assert flash_attention.bwd_launches == before
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 1
+    for g, r in zip(got, flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                 **kw)):
+        assert g.dtype == q.dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(),
+                                   **_fa_tol(dtype, True))
 
 
 def test_recurrentgemma_model_on_card_matches_cpu_and_counts_launches(
@@ -546,6 +604,42 @@ def test_fel_trainer_on_card_matches_cpu(cuda_device, scheme, backend):
     for a, b in zip(tree_leaves(cpu.params), tree_leaves(card.params)):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-1.6b",
+                                  "recurrentgemma-2b", "gemma3-12b"])
+def test_family_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One coded step of ``launch.train.train`` on each family's REDUCED
+    config (bf16 compute) on the card and the CPU: equal host outcomes,
+    losses within 1 %, and each backward kernel the path has launched
+    once a layer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_wkv import wkv
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(arch, reduced=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    kw = dict(steps=1, batch=1, seq=48, coded=True, params=params,
+              log=lambda msg: None)
+    cpu = train(cfg, device="cpu", **kw)
+    before = (flash_attention.bwd_launches, wkv.bwd_launches,
+              rglru_scan.bwd_launches)
+    card = train(cfg, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    want = (sum(m in ("attn", "local") for m, _ in kinds),
+            sum(m == "rwkv" for m, _ in kinds),
+            sum(m == "rec" for m, _ in kinds))
+    assert (flash_attention.bwd_launches - before[0],
+            wkv.bwd_launches - before[1],
+            rglru_scan.bwd_launches - before[2]) == want
+    for key in ("n_slots", "sim_time", "decode_ok", "n_stragglers"):
+        assert card[key] == cpu[key], key
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-2)
 
 
 def test_lm_train_coded_step_on_card_matches_cpu(cuda_device):

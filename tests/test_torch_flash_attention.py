@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.flash_attention.ref import kv_band
 from repro_torch.models.attention import flash_attention as port_model_fa
 
+from torch_train_parity import FLAGS, run_against_reference
+
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 F32_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 F32_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -115,9 +117,12 @@ def test_kernel_states_its_head_width_limits():
                                                          MAX_HEAD_DIM,
                                                          SOURCE)
     text = SOURCE.read_text()
-    assert (MAX_HEAD_DIM, MAX_BWD_HEAD_DIM) == (256, 128)
+    assert (MAX_HEAD_DIM, MAX_BWD_HEAD_DIM) == (256, 256)
     assert f"kMaxFwdD = {MAX_HEAD_DIM};" in text
     assert f"kMaxBwdD = {MAX_BWD_HEAD_DIM};" in text
+    # above 128 columns the float32 backward runs its wide kernels
+    assert "fa_bwd_dq_wide_kernel" in text and \
+        "fa_bwd_dkdv_wide_kernel" in text
 
 
 # --------------------------------------------------------------------- #
@@ -277,13 +282,14 @@ def test_route_by_type_and_width(dtype, D, backward, route):
 
 
 def test_route_refuses_what_no_kernel_takes():
-    from repro_torch.kernels.flash_attention.ops import kernel_route
+    from repro_torch.kernels.flash_attention.ops import ROUTES, kernel_route
     for dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kernel_route(dtype, 256, backward=True)
+        # head width 256 has a backward on both routes
+        assert kernel_route(dtype, 256, backward=True) == ROUTES[dtype][0]
         for D in (0, 12, 264):
-            with pytest.raises(ValueError, match="multiple of 8"):
-                kernel_route(dtype, D)
+            for backward in (False, True):
+                with pytest.raises(ValueError, match="multiple of 8"):
+                    kernel_route(dtype, D, backward)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         kernel_route(torch.float16, 64)
 
@@ -303,3 +309,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention_bwd(q, k, k, out, lse[..., :4], out)
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention_fwd(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+# --------------------------------------------------------------------- #
+# training through the LM driver (tests/torch_train_parity.py)
+# --------------------------------------------------------------------- #
+def test_gemma3_training_matches_reference(tmp_path, capsys, monkeypatch):
+    """gemma3-12b REDUCED (five windowed local layers and a global one)
+    through ``launch.train.train`` (coded) against the reference's loop on
+    its float32 twin, at 48 tokens, past the window of 32, so that it bites
+    in the attention forward and backward."""
+    flags = list(FLAGS)
+    flags[flags.index("--seq") + 1] = "48"
+    run_against_reference("gemma3-12b", True, flags, tmp_path, capsys,
+                          monkeypatch)

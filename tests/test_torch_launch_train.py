@@ -193,6 +193,43 @@ def test_crash_resume_is_bit_exact(coded, tmp_path):
         assert first["sim_time"] + second["sim_time"] == whole["sim_time"]
 
 
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-state", "bf16-state"])
+def test_inplace_adamw_is_bit_equal_to_the_functional_update(state_dtype,
+                                                             monkeypatch):
+    """``adamw(...).update_``, the driver's step, against ``update`` over
+    3 steps: float32 and bf16 parameters (one not contiguous), both
+    moments and the step equal bit for bit, with weight decay and a
+    scheduled lr, in slices smaller than the leaves; each gradient leaf
+    is let go once applied, and ``update`` writes into none of its
+    inputs."""
+    import repro_torch.optim.optimizers as port_opt
+    monkeypatch.setattr(port_opt, "INPLACE_SLICE", 64)
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(5, 7, generator=gen),
+              "b": [torch.randn(300, generator=gen).to(torch.bfloat16),
+                    torch.randn(2, 3, 4, generator=gen).transpose(0, 1)]}
+    opt = adamw(lambda step: 1e-2 / step.float(), weight_decay=0.1,
+                state_dtype=state_dtype)
+    fun = tree_map(torch.clone, params)
+    inplace = tree_map(torch.clone, params)
+    s_fun, s_in = opt.init(fun), opt.init(inplace)
+    for _ in range(3):
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=gen).to(
+            p.dtype), params)
+        before = [t.clone() for t in tree_leaves((grads, fun, s_fun))]
+        inputs = tree_leaves((grads, fun, s_fun))
+        fun, s_fun = opt.update(grads, s_fun, fun)
+        assert all(torch.equal(a, b) for a, b in zip(before, inputs))
+        leaves = [g.clone() for g in tree_leaves(grads)]
+        s_in = opt.update_(leaves, s_in, inplace)
+        assert leaves == [None] * len(leaves)
+    assert int(s_fun.step) == int(s_in.step) == 3
+    for a, b in zip(tree_leaves((fun, s_fun.m, s_fun.v)),
+                    tree_leaves((inplace, s_in.m, s_in.v))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_command_line_runs_on_the_cpu(capsys):
     out = port_train.main(["--steps", "2", "--batch", "2", "--seq", "16",
                            "--coded", "--device", "cpu"])

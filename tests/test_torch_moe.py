@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import repro.models.moe as ref_moe
 
 import repro_torch.models.moe as port_moe
+from torch_train_parity import FLAGS, run_against_reference
 
 W_RTOL = 1e-6
 FFN_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -220,3 +221,20 @@ def test_capacity_is_the_reference_s(T, k, E, cf):
     want = ((want + 7) // 8) * 8
     assert port_moe.moe_capacity(T, k, E, cf) == want
     assert port_moe.moe_capacity(4096, 8, 40, 1.0) == 824
+
+
+# --------------------------------------------------------------------- #
+# training through the LM driver (tests/torch_train_parity.py)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("coded", [True, False], ids=["coded", "plain"])
+def test_granite_moe_training_matches_reference(coded, tmp_path, capsys,
+                                                monkeypatch):
+    """granite-moe-3b-a800m REDUCED (top-2 of 8 experts) through
+    ``launch.train.train`` against the reference's loop on its float32
+    twin, at the config's own capacity factor, 1.0: tokens are dropped,
+    and the port must drop the same ones.  The coded loss is the CE alone
+    (the reference's ``per_slot_lm_loss`` drops the balance loss), the
+    plain loss CE + 0.01·aux (``transformer.loss_fn``); the reference
+    prints each, and the port's losses are held to them."""
+    run_against_reference("granite-moe-3b-a800m", coded, FLAGS, tmp_path,
+                          capsys, monkeypatch)

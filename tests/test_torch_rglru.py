@@ -58,6 +58,7 @@ import repro_torch.models.transformer as port_tf                  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan  # noqa: E402
 from repro_torch.models.common import spec_leaves                 # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves              # noqa: E402
+from torch_train_parity import FLAGS, run_against_reference        # noqa: E402
 
 #: tests/test_kernels.py's bounds: (out, h_last) by dtype
 SCAN_TOL = {"float32": (dict(rtol=2e-5, atol=2e-5),
@@ -549,3 +550,35 @@ def test_training_through_the_rec_block_on_the_cpu():
     for name in ("lam", "w_a", "w_x", "conv_w"):
         idx = next(i for i, t in enumerate(leaves) if t is rec[name])
         assert torch.isfinite(grads[idx]).all() and grads[idx].abs().sum() > 0
+
+
+def _exact_scale_scan(x, p, h0=None):
+    """``repro.models.rglru.rglru_scan`` with the input scale taken as
+    ``sqrt(-expm1(2 log a))``; nothing else changed."""
+    xf = x.astype(jnp.float32)
+    i, log_a = ref_rglru._gates(xf, p)
+    a = jnp.exp(log_a)
+    b = jnp.sqrt(jnp.maximum(-jnp.expm1(2.0 * log_a), 1e-12)) * (i * xf)
+    if h0 is not None:
+        b = b.at[:, 0].add(a[:, 0] * h0.astype(jnp.float32))
+    _, h = jax.lax.associative_scan(
+        lambda u, v: (u[0] * v[0], v[0] * u[1] + v[1]), (a, b), axis=1)
+    return h.astype(x.dtype), h[:, -1]
+
+
+def test_recurrentgemma_training_matches_reference(tmp_path, capsys,
+                                                   monkeypatch):
+    """recurrentgemma-2b REDUCED (rec and windowed local layers) through
+    ``launch.train.train`` (coded) against the reference's loop on its
+    float32 twin (``tests/torch_train_parity.py``), at 48 tokens, past
+    the window of 32, so that it bites in the forward and the attention
+    backward.  The RG-LRU's backward on the CPU is the written-out
+    ``rglru_bwd_ref``; the reference differentiates ``associative_scan``.
+    Its input scale cancels where a is within a few ulps of 1 (above), which
+    no nudge of the weights bounds, so its scan is patched to the port's
+    scale, as the WKV tests patch the chunked WKV."""
+    monkeypatch.setattr(ref_rglru, "rglru_scan", _exact_scale_scan)
+    flags = list(FLAGS)
+    flags[flags.index("--seq") + 1] = "48"
+    run_against_reference("recurrentgemma-2b", True, flags, tmp_path, capsys,
+                          monkeypatch)

@@ -43,6 +43,7 @@ from repro.kernels.rwkv6_wkv.ref import wkv_ref as ref_wkv_ref    # noqa: E402
 import repro_torch.configs.rwkv6_1_6b as port_rwkv_cfg            # noqa: E402
 import repro_torch.models.rwkv6 as port_rwkv                      # noqa: E402
 import repro_torch.models.transformer as port_tf                  # noqa: E402
+from torch_train_parity import FLAGS, run_against_reference        # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref            # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_exact   # noqa: E402
 from repro_torch.models.common import spec_leaves                 # noqa: E402
@@ -500,3 +501,19 @@ def test_init_cache_matches_reference_layout():
     _assert_tree_close(ref, port)
     assert all(t.dtype == torch.float32 for t in tree_leaves(port))
 
+
+def _ref_chunked_as_sequential(r, k, v, w, u, S0=None, *, chunk=32):
+    return ref_rwkv.wkv_sequential(r, k, v, w, u, S0)
+
+
+def test_rwkv_training_matches_reference(tmp_path, capsys, monkeypatch):
+    """rwkv6-1.6b REDUCED through ``launch.train.train`` (coded) against
+    the reference's loop on its float32 twin (``tests/
+    torch_train_parity.py``).  The port's WKV is an autograd Function
+    whose backward on the CPU is the written-out ``wkv_bwd_ref``; the
+    reference differentiates its ``wkv_chunked``, patched here to
+    ``wkv_sequential`` as above, since its clamped exponent is wrong past
+    a cumulative log-decay of -30 inside a chunk."""
+    monkeypatch.setattr(ref_rwkv, "wkv_chunked", _ref_chunked_as_sequential)
+    run_against_reference("rwkv6-1.6b", True, FLAGS, tmp_path, capsys,
+                          monkeypatch)

@@ -37,6 +37,7 @@ import repro_torch.models.transformer as port_tf                  # noqa: E402
 from repro_torch.core.coded_step import _value_and_grad           # noqa: E402
 from repro_torch.launch import train as port_train                # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves              # noqa: E402
+from torch_train_parity import FLAGS, run_against_reference        # noqa: E402
 
 for _mod in ("llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
              "internvl2_26b", "deepseek_67b", "gemma3_12b", "qwen3_14b",
@@ -206,11 +207,29 @@ def test_synthetic_batch_is_the_reference_s(arch, kind, dtype):
 
 
 def test_train_refuses_moe_and_frontend_configs():
+    """``train()`` refuses the frontend configs, as the reference's driver
+    does; the MoE configs, which it refused until MoE training was ported,
+    now train (one plain step here; ``tests/test_torch_moe_train.py`` and
+    ``test_torch_llama4_train.py`` hold them against the reference)."""
     for arch in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
         cfg = port_configs.get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_train.train(cfg, steps=1, device="cpu")
+        out = port_train.train(cfg, steps=1, batch=1, seq=16, device="cpu",
+                               log=lambda msg: None)
+        assert out["step"] == [0] and np.isfinite(out["loss"][0])
     for arch in ("internvl2-26b", "hubert-xlarge"):
         cfg = port_configs.get_config(arch, reduced=True)
         with pytest.raises(SystemExit):
             port_train.train(cfg, steps=1, device="cpu")
+
+
+@pytest.mark.parametrize("coded", [True, False], ids=["coded", "plain"])
+def test_llama4_moe_training_matches_reference(coded, tmp_path, capsys,
+                                               monkeypatch):
+    """llama4-maverick-400b-a17b REDUCED (top-1 of 8 experts with a shared
+    expert, every other layer MoE) through ``launch.train.train`` against
+    the reference's loop on its float32 twin (``tests/
+    torch_train_parity.py``), at the config's own capacity factor; the
+    coded loss is the CE alone and the plain loss CE + 0.01·aux, as the
+    reference's."""
+    run_against_reference("llama4-maverick-400b-a17b", coded, FLAGS,
+                          tmp_path, capsys, monkeypatch)
