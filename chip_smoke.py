@@ -213,6 +213,10 @@ WKV_TRAIN_PATH = (FAM_ROWS, 32, 1024, 64, 64)
 RG_TRAIN_PATH = (FAM_ROWS, 1024, 2560)
 FA256_TRAIN_PATHS = (((FAM_ROWS, 1024, 1, 10, 256), RG_WINDOW),
                      ((FAM_ROWS, 2048, 8, 2, 256), 1024))
+#: the design of the attention backward at head width 256
+FA256_BWD_DESIGN = ("two consumer warpgroups a block exchanging P or dS "
+                    "through shared memory: S and dP once a tile pair, 7 "
+                    "full-width products")
 #: teacher-forced prompts: below the window, decoding across its edge,
 #: and above it (a ring from prefill)
 RG_TF_PROMPTS = (1024, 2040, 2560)
@@ -285,18 +289,20 @@ def no_launches(**n) -> dict:
 
 
 def reset_counts() -> None:
-    """Every count at 0, the windowed share of the attention forward's
-    (``windowed_launches``) too."""
+    """Every count at 0, the windowed shares of the attention forward's
+    and backward's (``windowed_launches``) too."""
     from repro_torch.kernels.flash_attention import flash_attention
     set_counts(no_launches())
     flash_attention.fwd_windowed_launches = 0
+    flash_attention.bwd_windowed_launches = 0
 
 
-def windowed_launches() -> int:
-    """Attention forward launches with a sliding window since
-    ``reset_counts``."""
+def windowed_launches(backward: bool = False) -> int:
+    """Attention forward (or backward) launches with a sliding window
+    since ``reset_counts``."""
     from repro_torch.kernels.flash_attention import flash_attention
-    return flash_attention.fwd_windowed_launches
+    return flash_attention.bwd_windowed_launches if backward else \
+        flash_attention.fwd_windowed_launches
 
 
 def read_counts() -> dict:
@@ -337,17 +343,26 @@ def device_phase():
 def kernel_name(mangled: str) -> str:
     """``fa_fwd_tc_kernel<4>`` or ``wkv_fwd_chunked_kernel<bf16, 64, 64, 32,
     16, 3>`` from its mangled name (the name as it is where it does not
-    parse): the element type, then the integer arguments."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w*?)EE)?", mangled)
-    if not m:
-        return mangled
-    if m.group(2) is None:
-        return m.group(1)
-    tail = m.group(2)
-    args = (["float"] if re.match(r"(?:NS_\d+CfgI)?f", tail) else
+    parse): the element type, then the integer arguments.  The name is the
+    first length-prefixed component ending in ``_kernel``."""
+    at = mangled.find("N") + 1 if mangled.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"(\d+)", mangled[at:])
+        if not m:
+            return mangled
+        at += len(m.group(1))
+        name = mangled[at:at + int(m.group(1))]
+        at += len(name)
+        if name.endswith("_kernel"):
+            break
+    t = re.match(r"I(\w*?)EE", mangled[at:])
+    if not t:
+        return name
+    tail = t.group(1)
+    args = (["float"] if re.match(r"(?:NS_\d+\w*?CfgI)?f", tail) else
             ["bf16"] if "13__nv_bfloat16" in tail else []) + \
         re.findall(r"Li(\d+)", tail)
-    return f"{m.group(1)}<{', '.join(args)}>"
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_kernels(report: str) -> list:
@@ -407,8 +422,9 @@ def recurrence_smem(name: str):
         return None
     dtype = torch.float32 if m.group(2) == "float" else torch.bfloat16
     args = [int(x) for x in m.group(3).split(", ")]
-    if m.group(1) == "wkv_fwd_chunked_kernel":
-        return wk.smem_bytes(dtype, args[0], args[1])
+    if m.group(1) in ("wkv_fwd_chunked_kernel", "wkv_bwd_kernel"):
+        return wk.smem_bytes(dtype, args[0], args[1],
+                             backward=m.group(1) == "wkv_bwd_kernel")
     if m.group(1) == "rglru_scan_ring_kernel":
         return rg.smem_bytes(dtype)
     return None
@@ -570,8 +586,8 @@ FA_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
 
 def fa_case(tag, shape_q, dtype, causal, window, chunk=64) -> tuple:
     """Flash attention forward and backward at ``shape_q`` against the
-    plain version, each within ``FA_TOL``; returns the largest errors
-    (forward, backward)."""
+    plain version, each within ``FA_TOL``, and the backward bit-equal over
+    two launches; returns the largest errors (forward, backward)."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -582,7 +598,11 @@ def fa_case(tag, shape_q, dtype, causal, window, chunk=64) -> tuple:
     kw = dict(causal=causal, window=window, q_chunk=chunk, kv_chunk=chunk)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{tag}: two backward launches differ")
+    del again
     out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
     grads_r = flash_attention_bwd_ref(q, k, v, out_r, lse_r, do, **kw)
     name = str(dtype)[6:]
@@ -831,8 +851,9 @@ def wkv_bwd_kernel_phase() -> float:
     """The WKV backward kernel against its plain version (the reverse
     sweep over the sequential recurrence's states) on the path's shape in
     bfloat16, float32 cases with a ragged tail, K != V, decays with zeros
-    and w -> 1, and a gradient of S_last; returns the largest error at the
-    path's shape.
+    and w -> 1, and a gradient of S_last, a sequence of one whole chunk
+    and one shorter than a chunk; each bit-equal over two launches;
+    returns the largest error at the path's shape.
 
     Tolerances.  Float32: rtol 2e-4 and atol 2e-4·max(1, max|grad|), the
     forward's bound: both sum K or V products a step in float32 in other
@@ -855,7 +876,11 @@ def wkv_bwd_kernel_phase() -> float:
         ds = torch.from_numpy(rng.standard_normal((B, H, K, V)).astype(
             np.float32)).cuda() if with_ds else None
         got = wkv_bwd(r, k, v, wv, u, dout, ds)
+        again = wkv_bwd(r, k, v, wv, u, dout, ds)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"wkv bwd {tag}: two launches differ")
+        del again
         want = wkv_bwd_ref(r, k, v, wv, u, dout, ds)
         err = 0.0
         for n, g, x in zip(("dr", "dk", "dv", "dw", "du"), got, want):
@@ -884,8 +909,14 @@ def wkv_bwd_kernel_phase() -> float:
          (1, 2, 1000, 64, 64), torch.float32, "zeros")
     case("w -> 1 (1, 2, 1024, 64, 64)", (1, 2, 1024, 64, 64),
          torch.float32, math.exp(-math.exp(-8.0)))
+    case("one chunk (1, 1, 16, 64, 64)", (1, 1, 16, 64, 64), torch.float32,
+         "uniform", with_ds=True)
+    case("K != V (1, 2, 100, 32, 16)", (1, 2, 100, 32, 16), torch.float32,
+         "zeros", with_ds=True)
     case("ragged (2, 3, 1000, 64, 64)", (2, 3, 1000, 64, 64),
          torch.bfloat16, "path")
+    case("shorter than a chunk (1, 2, 5, 64, 64)", (1, 2, 5, 64, 64),
+         torch.bfloat16, "uniform", with_ds=True)
     case(f"path {WKV_TRAIN_PATH}", WKV_TRAIN_PATH, torch.bfloat16, "path")
     torch.cuda.empty_cache()
     return path_err
@@ -896,7 +927,8 @@ def flash256_kernel_phase() -> float:
     layers: MQA, G = 10, window 2,048) against its plain version, with
     ``FA_TOL``'s forward bounds, then forward and backward at head width
     256 over 3,000 tokens, windows 1,024 and 2,048 and none, on both
-    routes; returns the largest forward error at the path's shape."""
+    routes, and bf16 at G = 1, at a ragged tail and without a mask;
+    returns the largest forward error at the path's shape."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -930,6 +962,13 @@ def flash256_kernel_phase() -> float:
                 torch.float32, True, window, chunk=1024)
     fa_case("D=256 MQA (1,3000,1,10,256)", (1, 3000, 1, 10, 256),
             torch.bfloat16, True, RG_WINDOW, chunk=1024)
+    # the two-warpgroup kernels at G = 1, at a ragged tail, not causal
+    fa_case("D=256 G=1 (1,200,2,1,256)", (1, 200, 2, 1, 256),
+            torch.bfloat16, True, 0)
+    fa_case("D=256 ragged (2,100,1,3,256)", (2, 100, 1, 3, 256),
+            torch.bfloat16, True, 48)
+    fa_case("D=256 non-causal (1,200,2,2,256)", (1, 200, 2, 2, 256),
+            torch.bfloat16, False, 0)
     fa_case("D=192 (1,300,2,2,192)", (1, 300, 2, 2, 192), torch.bfloat16,
             True, 100)
     fa_case("D=192 (1,300,2,2,192)", (1, 300, 2, 2, 192), torch.float32,
@@ -1812,6 +1851,7 @@ def famtrain_phase() -> dict:
                     lr=LM_TRAIN["lr"])
         torch.cuda.synchronize()
         launches, windowed = read_counts(), windowed_launches()
+        windowed_bwd = windowed_launches(backward=True)
         peak = torch.cuda.max_memory_allocated()
         want = fam_launches(cfg, FAM_STEPS)
         for i, step in enumerate(out["step"]):
@@ -1820,8 +1860,9 @@ def famtrain_phase() -> dict:
                 f"{out['loss'][i]:.6f}; ms: plan {out['plan_ms'][i]:.1f}, "
                 f"data {out['data_ms'][i]:.1f}, step {out['step_ms'][i]:.1f}")
         log(f"[famtrain] {arch} launches {launches} (the path implies "
-            f"{want}), of them windowed attention forwards {windowed}; peak "
-            f"device memory {peak} bytes ({peak / 1e9:.2f} GB)")
+            f"{want}), of them windowed attention forwards {windowed}, "
+            f"backwards {windowed_bwd}; peak device memory {peak} bytes "
+            f"({peak / 1e9:.2f} GB)")
         if launches != want:
             raise AssertionError(f"{arch}: launch counts {launches}, the "
                                  f"path implies {want}")
@@ -1830,16 +1871,22 @@ def famtrain_phase() -> dict:
         if peak >= 80e9:
             raise AssertionError(f"{arch}: peak {peak / 1e9:.2f} GB")
         row = {k: out[k] for k in ("n_slots", "step_ms", "loss")}
-        row.update(peak=peak, launches=launches, windowed=windowed, S=S,
+        row.update(peak=peak, launches=launches, windowed=windowed,
+                   windowed_bwd=windowed_bwd, S=S,
                    rows=M * max(out["n_slots"]))
         if cfg.head_dim == 256 and launches["flash_attention_bwd"]:
-            # the attention kernels at the largest shape the path gave them
+            # the attention kernels at the largest shape the path gave
+            # them, at its window and, where some layers are global,
+            # without one
             counts = read_counts()
             shape = (row["rows"], S, cfg.n_kv_heads,
                      cfg.n_heads // cfg.n_kv_heads, 256)
-            row["fa_bwd_err"] = fa_case(f"{arch} path {shape}", shape,
-                                        torch.bfloat16, True, cfg.window,
-                                        chunk=1024)[1]
+            windows = [cfg.window] + (
+                [0] if windowed_bwd < launches["flash_attention_bwd"] else [])
+            row["fa_bwd_errs"] = {
+                w: fa_case(f"{arch} path {shape}", shape, torch.bfloat16,
+                           True, w, chunk=1024)[1] for w in windows}
+            row["fa_bwd_err"] = max(row["fa_bwd_errs"].values())
             set_counts(counts)
         if cfg.n_experts:
             # the share of assignments each layer drops at capacity 1.0,
@@ -3494,9 +3541,10 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
                 causal=True) -> dict:
     """The kernel's forward (and backward, and forward+backward) at
     ``shape`` beside the plain version, ``scaled_dot_product_attention``
-    (timed as a yardstick only) and the bound.  A window is timed only
-    where it is no shorter than the sequence, so that the library's call
-    computes the same."""
+    (timed as a yardstick only) and the bound.  Where a window is shorter
+    than the sequence the library's call takes it as a boolean mask (which
+    rules out its flash backend), and the bound counts only the pairs the
+    window leaves."""
     import torch
     import torch.nn.functional as F
 
@@ -3506,7 +3554,8 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
 
     B, S, KV, G, D = shape
     H = KV * G
-    assert not window or window >= S
+    masked = bool(window) and window < S
+    assert causal or not window
     kw = dict(causal=causal, window=window)
     q, k, v, do = _fa_inputs(5, shape, dtype)
     counts = read_counts()
@@ -3520,9 +3569,13 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
         x.reshape(B, S, x.shape[2], -1, D).expand(B, S, KV, G, D)
         .reshape(B, S, H, D).transpose(1, 2).contiguous()
         for x in (q, k[:, :, :, None], v[:, :, :, None], do)]
+    lib_kw = dict(is_causal=causal)
+    if masked:
+        pos = torch.arange(S, device="cuda")
+        lag = pos[:, None] - pos[None, :]
+        lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
     t["sdpa_fwd_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                               is_causal=causal), 30)
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, **lib_kw), 30)
     if backward:
         t["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
             q, k, v, out, lse, do), 20)
@@ -3532,21 +3585,27 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
                   for x in (q, k, v)]
 
         def fwd_bwd():
-            o = flash_attention(*leaves)
+            o = flash_attention(*leaves, **kw)
             torch.autograd.grad(o, leaves, do)
         t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
         lib = [x.detach().clone().requires_grad_(True)
                for x in (qh, kh, vh)]
-        lib_out = F.scaled_dot_product_attention(*lib, is_causal=causal)
+        lib_out = F.scaled_dot_product_attention(*lib, **lib_kw)
         t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
             lib_out, lib, doh, retain_graph=True), 20)
     set_counts(counts)                   # these launches are not a path's
 
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     elt = q.element_size()
-    # the visible pairs: the causal triangle, or every pair
-    flops_fwd = (B * H * S * (S + 1) // 2 if causal else B * H * S * S) \
-        * 4 * D
+    # the visible pairs: the causal triangle (each row's last `window`
+    # keys where a window is shorter), or every pair
+    if causal:
+        span = window if window else S
+        pairs = span * (span + 1) // 2 + (S - span) * span if span < S \
+            else S * (S + 1) // 2
+    else:
+        pairs = S * S
+    flops_fwd = B * H * pairs * 4 * D
     flops_bwd = 2.5 * flops_fwd                        # 5 products, not 2
     bytes_fwd = (2 * B * S * H * D + 2 * B * S * KV * D) * elt + 4 * B * H * S
     bytes_bwd = (4 * B * S * H * D + 4 * B * S * KV * D) * elt + \
@@ -3558,17 +3617,20 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
         t[f"{name}_bound_by"] = "operations" if t_ops >= t_bytes \
             else "bytes"
         t[f"{name}_flops"] = flops
+    sdpa = "sdpa with a boolean mask" if masked else "sdpa"
     msg = (f"[times] flash_attention {shape} {str(dtype)[6:]} causal="
            f"{causal} window={window}: forward {t['fwd_ms']:.4f} ms (plain "
-           f"{t['plain_fwd_ms']:.4f}, sdpa {t['sdpa_fwd_ms']:.4f}, bound "
+           f"{t['plain_fwd_ms']:.4f}, {sdpa} {t['sdpa_fwd_ms']:.4f}, bound "
            f"{t['fwd_bound_ms']:.4f} by {t['fwd_bound_by']}: "
            f"{flops_fwd / 1e9:.1f} GFLOP, "
            f"{flops_fwd / t['fwd_ms'] / 1e9:.2f} TFLOP/s)")
     if backward:
         msg += (f"; backward {t['bwd_ms']:.4f} ms (plain "
-                f"{t['plain_bwd_ms']:.4f}, sdpa {t['sdpa_bwd_ms']:.4f}, "
-                f"bound {t['bwd_bound_ms']:.4f}: {flops_bwd / 1e9:.1f} "
-                f"GFLOP, {flops_bwd / t['bwd_ms'] / 1e9:.2f} TFLOP/s); "
+                f"{t['plain_bwd_ms']:.4f}, {sdpa} {t['sdpa_bwd_ms']:.4f}, "
+                f"bound {t['bwd_bound_ms']:.4f} by {t['bwd_bound_by']}: "
+                f"{flops_bwd / 1e9:.1f} GFLOP, "
+                f"{flops_bwd / t['bwd_ms'] / 1e9:.2f} TFLOP/s, "
+                f"{t['bwd_bound_ms'] / t['bwd_ms']:.1%} of the bound); "
                 f"forward+backward through autograd {t['fwd_bwd_ms']:.4f} "
                 f"ms")
     log(msg)
@@ -4088,10 +4150,27 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         f"attention {rl['flash_attention_fwd'] * fa256['fwd_ms'] / n_pre:.3f}"
         f" ms of {float(np.median(rg_out['res']['prefill_ms'])):.2f} ms")
 
-    fam_times(fam)
     rgb, wkb = rglru_bwd_times(), wkv_bwd_times()
     fa_bwd = flash_times(torch.bfloat16, FA256_TRAIN_PATHS[0][0],
                          FA256_TRAIN_PATHS[0][1])
+    g3_shape, g3_window = FA256_TRAIN_PATHS[1]
+    g3 = {w: flash_times(torch.bfloat16, g3_shape, w)
+          for w in (g3_window, 0)}
+    rg_fam, g3_fam = fam["recurrentgemma-2b"], fam["gemma3-12b"]
+    g3_bwd = g3_fam["launches"]["flash_attention_bwd"]
+    fam_times(fam, {
+        "rwkv6-1.6b": [("WKV backward", fam["rwkv6-1.6b"]["launches"][
+            "rwkv6_wkv_bwd"], wkb["ms"])],
+        "recurrentgemma-2b": [
+            ("RG-LRU backward", rg_fam["launches"]["rglru_scan_bwd"],
+             rgb["ms"]),
+            ("attention backward D=256", rg_fam["launches"][
+                "flash_attention_bwd"], fa_bwd["bwd_ms"])],
+        "gemma3-12b": [
+            (f"attention backward D=256 window {g3_window}",
+             g3_fam["windowed_bwd"], g3[g3_window]["bwd_ms"]),
+            ("attention backward D=256 global",
+             g3_bwd - g3_fam["windowed_bwd"], g3[0]["bwd_ms"])]})
 
     from repro_torch.kernels.flash_attention.ops import kernel_route
     src = "src/repro_torch/kernels"
@@ -4175,17 +4254,31 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "library_ms": fa256["sdpa_fwd_ms"]}, {
         "name": "flash_attention_bwd_d256", "route": "cuda",
         "kernel_route": kernel_route(torch.bfloat16, 256, True),
+        "design": FA256_BWD_DESIGN,
         "shape": list(FA256_TRAIN_PATHS[0][0]),
+        "window": FA256_TRAIN_PATHS[0][1],
         "source": f"{src}/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/models/attention.py:204",
-        "launches": fam["recurrentgemma-2b"]["launches"][
-            "flash_attention_bwd"] +
-        fam["gemma3-12b"]["launches"]["flash_attention_bwd"],
-        "max_abs_err": bwd_errs["fa256"], "ms": fa_bwd["bwd_ms"],
+        "launches": rg_fam["launches"]["flash_attention_bwd"],
+        "max_abs_err": rg_fam["fa_bwd_err"], "ms": fa_bwd["bwd_ms"],
         "plain_ms": fa_bwd["plain_bwd_ms"],
         "bound_ms": fa_bwd["bwd_bound_ms"],
         "bound_by": fa_bwd["bwd_bound_by"],
-        "library_ms": fa_bwd["sdpa_bwd_ms"]}, {
+        "library_ms": fa_bwd["sdpa_bwd_ms"]}, *({
+        "name": f"flash_attention_bwd_d256_{tag}", "route": "cuda",
+        "kernel_route": kernel_route(torch.bfloat16, 256, True),
+        "design": FA256_BWD_DESIGN,
+        "shape": list(g3_shape), "window": w,
+        "source": f"{src}/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/attention.py:204",
+        "launches": g3_fam["windowed_bwd"] if w else
+        g3_bwd - g3_fam["windowed_bwd"],
+        "max_abs_err": g3_fam["fa_bwd_errs"][w], "ms": g3[w]["bwd_ms"],
+        "plain_ms": g3[w]["plain_bwd_ms"],
+        "bound_ms": g3[w]["bwd_bound_ms"],
+        "bound_by": g3[w]["bwd_bound_by"],
+        "library_ms": g3[w]["sdpa_bwd_ms"]}
+        for tag, w in (("w1024", g3_window), ("g2", 0))), {
         "name": "rglru_scan_bwd", "route": "cuda",
         "design": "reverse scan, one thread a channel, bit-equal",
         "shape": list(RG_TRAIN_PATH),
@@ -4196,8 +4289,10 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "plain_ms": rgb["plain_ms"], "bound_ms": rgb["bound_ms"],
         "bound_by": rgb["bound_by"], "library_ms": None}, {
         "name": "rwkv6_wkv_bwd", "route": "cuda",
-        "design": "reverse sweep, states recomputed from checkpoints "
-                  "every 16 steps, one block a (batch, head)",
+        "design": "chunked exact, L=16: a chunked state pass, then each "
+                  "chunk's gradients in parallel from its state and the "
+                  "carried dS, 3xTF32 tensor-core products, one block a "
+                  "(batch, head)",
         "shape": list(WKV_TRAIN_PATH),
         "source": f"{src}/rwkv6_wkv/csrc/rwkv6_wkv.cu",
         "replaces": "src/repro/models/rwkv6.py:54",
@@ -4207,18 +4302,23 @@ def times_phase(mlp, lm, serve_out, rg_out, errs, fa_errs, wkv_err,
         "bound_by": wkb["bound_by"], "library_ms": None}]
 
 
-def fam_times(fam) -> None:
-    """The family training path's step times and peaks, each backward
-    kernel's share of a step from its timed cost x its launches."""
+def fam_times(fam, costs) -> None:
+    """The family training path's step times and peaks, and each backward
+    kernel's share of a step from its timed cost x its launches a step
+    (``costs``: arch -> [(kernel, launches over the run, ms a call)])."""
     import numpy as np
     for arch, row in fam.items():
-        log(f"[times] famtrain {arch}: coded step median "
-            f"{float(np.median(row['step_ms'])):.1f} ms (all "
+        step = float(np.median(row['step_ms']))
+        shares = "".join(
+            f"; {name} {n / FAM_STEPS:g} x {ms:.4f} = "
+            f"{n / FAM_STEPS * ms:.1f} ms ({n / FAM_STEPS * ms / step:.1%})"
+            for name, n, ms in costs.get(arch, ()))
+        log(f"[times] famtrain {arch}: coded step median {step:.1f} ms (all "
             f"{[round(x, 1) for x in row['step_ms']]}) at {row['rows']} "
             f"rows of {row['S']} tokens; peak {row['peak'] / 1e9:.2f} GB"
             + ("" if "plain" not in row else
                f"; plain step {row['plain']['step_ms']:.1f} ms, peak "
-               f"{row['plain']['peak'] / 1e9:.2f} GB"))
+               f"{row['plain']['peak'] / 1e9:.2f} GB") + shares)
 
 
 def main() -> int:
@@ -4238,8 +4338,6 @@ def main() -> int:
     fel = fel_phase()
     lmt = lm_train_phase()
     fam = famtrain_phase()
-    bwd_errs["fa256"] = max(row["fa_bwd_err"] for row in fam.values()
-                            if "fa_bwd_err" in row)
     served = serve_phase()
     rg_out = rg_serve_phase()
     moe_out = moe_serve_phase()

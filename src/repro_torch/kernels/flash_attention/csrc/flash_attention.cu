@@ -68,29 +68,53 @@
 //   needs 32 more registers, which halved the blocks an SM at D = 64 and
 //   ran slower there (a producer warpgroup giving its registers up with
 //   `setmaxnreg` did not help: ptxas kept the consumers at the launch
-//   cap); two warpgroups a block in the backward also ran slower (fewer
-//   warpgroups an SM).  The backward recomputes S and dP in
+//   cap); two warpgroups a block in the backward at D <= 128 also ran
+//   slower (fewer warpgroups an SM).  The backward recomputes S and dP in
 //   both passes (7 products, not 5) to stay free of atomics.
 //   Budgets.  Shared memory (1 KB more for alignment): forward
 //   2 x Q + 2 x (K + V) = 6 tiles of 8 KB per 64 columns: 48 KB at D = 64
 //   (two blocks an SM, as registers allow), 96 KB at 128; at 256 Q + 2 x
 //   (K + V) = 160 KB (one block an SM, of the 227 KB a block may have);
 //   backward two fixed tiles + 2 x two ring tiles = 48 KB at D = 64, 96 KB
-//   at 128, 192 KB at 256.  Registers: each consumer thread holds 32
-//   float32 of every 64 x 64 accumulator, so the forward at D = 256 holds
-//   128 of O + 32 of S + 16 of P; the blocks are declared with
-//   __launch_bounds__ so ptxas keeps them under 255 (the build log,
-//   `-Xptxas -v`, prints registers and spills).  The forward walks the
-//   heaviest q tiles (the last, under a causal mask) first.
-//   The backward at D = 256.  dK and dV, 64 x 256 float32 each, would take
-//   256 registers a thread, and dQ with S and dP 192.  So a backward block
-//   accumulates only some of the output columns: a dq block two boxes
-//   (128 columns; S, dP, dQ and dS: 144 registers), a dk/dv block one box
-//   of dK and of dV (S, dP, P, dS, dK, dV: 160), and the grid's x axis
-//   holds the 2 (dq) or 4 (dk/dv) blocks of each tile.  Each of them still
-//   loads the whole D of its tiles and takes S and dP over all of D: the
-//   dk/dv pass does those two products four times, 2.5x its work at
-//   D <= 128.  The simple design; the outputs stay free of atomics.
+//   at 128, 192 KB and the exchange at 256.  Registers: each consumer
+//   thread holds 32 float32 of every 64 x 64 accumulator, so the forward
+//   at D = 256 holds 128 of O + 32 of S + 16 of P; the blocks are
+//   declared with __launch_bounds__ so ptxas keeps them under 255 (the
+//   build log, `-Xptxas -v`, prints registers and spills).  The forward
+//   walks the heaviest q tiles (the last, under a causal mask) first.
+//   The backward at D = 256 (`fa_bwd_dq256_kernel`,
+//   `fa_bwd_dkdv256_kernel`).  What bounds it is still the products, but
+//   one warpgroup cannot hold what a tile pair needs: dQ, dK and dV are
+//   64 x 256 float32, 128 registers a thread each.  The first design
+//   split each tile's output columns over 2 (dq) or 4 (dk/dv) blocks,
+//   every one of which took S and dP over all of D: 15 full-width products
+//   a tile pair instead of 7, 4.06 ms at recurrentgemma's (30, 1024, 1,
+//   10, 256), 10.0 % of the bound.  Now a block holds two consumer
+//   warpgroups on one tile pair, and S and dP are taken once each:
+//     dk/dv: warpgroup 0 takes Sᵀ, Pᵀ and dV += Pᵀ·dO, warpgroup 1 dPᵀ,
+//       dSᵀ and dK += dSᵀ·Q; each forms its second product's A operand
+//       from its own tile, so only P crosses (float32, 16 KB);
+//     dq: warpgroup 0 takes S, dP, P and dS, warpgroup 1 dQ += dS·K over
+//       all of D; dS crosses (bf16 A fragments, 8 KB), and warpgroup 0 goes
+//       on to the next tile pair while warpgroup 1 multiplies (splitting
+//       S | dP, with half of dQ each, ran no faster).
+//   Each thread leaves its part where the other warpgroup's thread of the
+//   same rank reads it; two named barriers (written, read) order the one
+//   buffer.  Neither block has a producer warp: a ninth warp puts three
+//   warps on one of the SM's four sub-partitions and caps registers at 168
+//   a thread, too few for the accumulator, a score tile and the fragments
+//   (ptxas spilled them, and a producer warpgroup giving registers up with
+//   `setmaxnreg` kept the cap, as in the forward).  The first warp of
+//   warpgroup 1 fills the ring instead, one tile pair ahead, the rows' lse
+//   and Dvec by `cp.async` that arrives on the stage's barrier.  Registers
+//   (`-Xptxas -v`): dk/dv 226, dq 184, no spills.  Shared memory: two
+//   fixed tiles (64 KB) + a ring of two stages of two tiles (128 KB) + the
+//   exchange (24 KB) + row values = 223,272 B.  The gradients equal the
+//   first design's bit for bit (the same products in the same order), free
+//   of atomics.  Tried and not kept (`kernels/backward_ab.py`, the pair of
+//   passes at recurrentgemma's shape, 1.78 ms shipped): the rows' lse and
+//   Dvec by plain loads in the loader warp, 1.91 ms; the dq pass's Dvec
+//   loop unrolled with every load in flight, 2.16 ms.
 //
 // * float32 -> CUDA cores (`fa_fwd_kernel`, `fa_bwd_dq_kernel`,
 //   `fa_bwd_dkdv_kernel`, instances for float only).  Tensor cores would
@@ -913,19 +937,6 @@ template <int NB> __host__ __device__ constexpr int fwd_threads() {
 }
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// backward: the boxes of 64 output columns a block accumulates (the rest
-// of D goes to other blocks of the grid's x axis); all of them up to
-// D = 128, at D = 256 two for dq and one each for dk and dv
-template <int NB> __host__ __device__ constexpr int dq_out_boxes() {
-  return NB > 2 ? 2 : NB;
-}
-template <int NB> __host__ __device__ constexpr int dkdv_out_boxes() {
-  return NB > 2 ? 1 : NB;
-}
-// the blocks that share the output columns of one tile
-template <int NO> __host__ __device__ inline int out_groups(int D) {
-  return (D + NO * kBoxCols - 1) / (NO * kBoxCols);
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -969,6 +980,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
       "r"(s0), "r"(b) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zeros where !in (nothing read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
 }
 
 // a wgmma shared-memory descriptor: start address, leading and stride
@@ -1301,7 +1319,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // backward, pass 1: Dvec = rowsum(dout ⊙ out) and dq, one block per
 // (q tile, query head, batch row), over the tile's kv band
 // ------------------------------------------------------------------------
-template <int NB, int NO>
+template <int NB>
 __global__ void __launch_bounds__(kBwdThreads, NB == 1 ? 2 : 1)
 fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -1319,8 +1337,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t bars = base + L::kBars, fixed = bars;
 
   const int n_q = (sh.S + kTile - 1) / kTile;
-  const int n_grp = out_groups<NO>(sh.D);
-  const int qt = n_q - 1 - blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int qt = n_q - 1 - blockIdx.x;
   const int h = blockIdx.y, kv = h / sh.G, b = blockIdx.z;
   const int q0 = qt * kTile;
   int lo, hi;
@@ -1381,16 +1398,16 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     dv0 += __shfl_xor_sync(0xffffffffu, dv0, o_);
     dv1 += __shfl_xor_sync(0xffffffffu, dv1, o_);
   }
-  if ((ln & 3) == 0 && grp == 0) {
+  if ((ln & 3) == 0) {
     if (r0 < sh.S) dvec[row_off + r0] = dv0;
     if (r1 < sh.S) dvec[row_off + r1] = dv1;
   }
   const float L0 = r0 < sh.S ? lse[row_off + r0] * kLog2e : 0.f;
   const float L1 = r1 < sh.S ? lse[row_off + r1] * kLog2e : 0.f;
 
-  float dqa[NO][32];
+  float dqa[NB][32];
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
 
@@ -1433,24 +1450,24 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < NO; ++c)
+    for (int c = 0; c < NB; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dqa[c], da[kk], desc_mn(tK, grp * NO + c, kk));
+        mma_rs(dqa[c], da[kk], desc_mn(tK, c, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int c = 0; c < NO; ++c) keep(dqa[c]);
+    for (int c = 0; c < NB; ++c) keep(dqa[c]);
     keep(da);
     mbar_arrive(bars + 8 * (1 + kStages + s));
   }
 
   bf16* dqb = dq + q_off;
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = (grp * NO + c) * kBoxCols + 8 * j + cq;
+      const int d = c * kBoxCols + 8 * j + cq;
       if (d >= sh.D) continue;
       if (r0 < sh.S)
         *reinterpret_cast<__nv_bfloat162*>(dqb + r0 * q_stride + d) =
@@ -1467,7 +1484,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // backward, pass 2: dk and dv, one block per (kv tile, kv head, batch
 // row), summing the G query heads of the kv head and the q tiles of each
 // ------------------------------------------------------------------------
-template <int NB, int NO>
+template <int NB>
 __global__ void __launch_bounds__(kBwdThreads, NB == 1 ? 2 : 1)
 fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -1486,9 +1503,7 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   float* rows = reinterpret_cast<float*>(gbase + L::kRowVals);
   const uint32_t bars = base + L::kBars, fixed = bars;
 
-  const int n_grp = out_groups<NO>(sh.D);
-  const int kt = blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
-  const int kv = blockIdx.y, b = blockIdx.z;
+  const int kt = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * kTile;
   int qlo, qhi;
   q_band(sh, kt, &qlo, &qhi);
@@ -1535,9 +1550,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int kr0 = k0 + 16 * w + (ln >> 2), kr1 = kr0 + 8;   // keys
   const int cq = 2 * (ln & 3);
   const float sl2 = sh.scale * kLog2e;
-  float dka[NO][32], dva[NO][32];
+  float dka[NB][32], dva[NB][32];
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
 
@@ -1587,19 +1602,19 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < NO; ++c)
+    for (int c = 0; c < NB; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dva[c], pa[kk], desc_mn(tdO, grp * NO + c, kk));
+        mma_rs(dva[c], pa[kk], desc_mn(tdO, c, kk));
 #pragma unroll
-    for (int c = 0; c < NO; ++c)
+    for (int c = 0; c < NB; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(dka[c], da[kk], desc_mn(tQ, grp * NO + c, kk));
+        mma_rs(dka[c], da[kk], desc_mn(tQ, c, kk));
     wg_commit();
     wg_wait();
 #pragma unroll
-    for (int c = 0; c < NO; ++c) {
+    for (int c = 0; c < NB; ++c) {
       keep(dka[c]);
       keep(dva[c]);
     }
@@ -1611,10 +1626,10 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int64_t k_stride = (int64_t)sh.KV * sh.D;
   const int64_t k_off = (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
 #pragma unroll
-  for (int c = 0; c < NO; ++c)
+  for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = (grp * NO + c) * kBoxCols + 8 * j + cq;
+      const int d = c * kBoxCols + 8 * j + cq;
       if (d >= sh.D) continue;
       if (kr0 < sh.S) {
         const int64_t at = k_off + kr0 * k_stride + d;
@@ -1630,6 +1645,437 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<__nv_bfloat162*>(dv + at) =
             __floats2bfloat162_rn(dva[c][4 * j + 2], dva[c][4 * j + 3]);
       }
+    }
+}
+
+// ------------------------------------------------------------------------
+// backward at D = 256 (NB = 4): two consumer warpgroups a block, which
+// split the products of each tile pair and pass P (float32) or dS (bf16,
+// packed as the A fragment) through shared memory, each thread's part in
+// the same place for the other warpgroup's thread of the same rank (the
+// note at the top of the file)
+// ------------------------------------------------------------------------
+struct Smem256 {
+  static constexpr int kTileBytes = 4 * kBoxBytes;        // 64 x 256 bf16
+  static constexpr int kFixA = 0, kFixB = kTileBytes;
+  static constexpr int kRingA = 2 * kTileBytes;
+  static constexpr int kRingB = kRingA + kStages * kTileBytes;
+  static constexpr int kP = kRingB + kStages * kTileBytes;   // 128 x 32 f32
+  static constexpr int kDS = kP + kConsumers * 32 * 4;       // 128 x 16 u32
+  static constexpr int kRowVals = kDS + kConsumers * 16 * 4;
+  static constexpr int kBars = kRowVals + 2 * kStages * kTile * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// a thread's 32 float32 of a 64 x 64 tile, and its 16 packed bf16 pairs,
+// to and from the exchange buffers (thread t's i-th vector at i·128 + t)
+__device__ __forceinline__ void put_f32(float4* buf, int t,
+                                        const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    buf[i * kConsumers + t] =
+        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+}
+__device__ __forceinline__ void put_frag(uint4* buf, int t,
+                                         const uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    buf[i * kConsumers + t] = make_uint4(a[i][0], a[i][1], a[i][2], a[i][3]);
+}
+__device__ __forceinline__ void get_frag(const uint4* buf, int t,
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v = buf[i * kConsumers + t];
+    a[i][0] = v.x;
+    a[i][1] = v.y;
+    a[i][2] = v.z;
+    a[i][3] = v.w;
+  }
+}
+// the named barriers: P written, dS written, the buffer read again
+constexpr int kBarP = 1, kBarDS = 2, kBarFree = 3;
+
+// pass 1 at D = 256: dq and Dvec, one block per (q tile, query head, batch
+// row) over the tile's kv band.  Warpgroup 0 takes S = Q·Kᵀ and dP =
+// dO·Vᵀ, P and dS = P ⊙ (dP - Dvec), and writes dS (bf16 A fragments)
+// before barrier 1 (kBarDS); warpgroup 1 accumulates all of dQ (64 x 256
+// float32, 128 registers a thread) from it and frees the buffer at
+// barrier 2 (kBarFree), while warpgroup 0 goes on to the next tile pair.
+// No producer warp, as in the dk/dv pass: the first warp of warpgroup 1
+// fills the ring, one tile pair ahead.
+__global__ void __launch_bounds__(2 * kConsumers, 1)
+fa_bwd_dq256_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const bf16* __restrict__ out,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dvec,
+                    bf16* __restrict__ dq, Shape sh) {
+  constexpr int NB = 4;
+  typedef Smem256 L;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gbase = smem_base(smem_raw);
+  const uint32_t base = smem_u32(gbase);
+  const uint32_t sQ = base + L::kFixA, sdO = base + L::kFixB;
+  const uint32_t sK = base + L::kRingA, sV = base + L::kRingB;
+  uint4* xDS = reinterpret_cast<uint4*>(gbase + L::kDS);
+  const uint32_t bars = base + L::kBars, fixed = bars;
+
+  const int n_q = (sh.S + kTile - 1) / kTile;
+  const int qt = n_q - 1 - blockIdx.x;
+  const int h = blockIdx.y, kv = h / sh.G, b = blockIdx.z;
+  const int q0 = qt * kTile;
+  int lo, hi;
+  kv_band(sh, qt, &lo, &hi);
+  init_barriers(bars, 1, 2 * kConsumers);
+
+  // tile pair `it`'s K and V tiles into its stage, by lane 0 of warp 4
+  // once both warpgroups have released the stage
+  const bool loader = threadIdx.x == 4 * 32;
+  auto load = [&](int it) {
+    const int s = it % kStages, k0 = (lo + it) * kTile;
+    const uint32_t full = bars + 8 * (1 + s);
+    mbar_wait(bars + 8 * (1 + kStages + s), ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * L::kTileBytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(sK + s * L::kTileBytes + c * kBoxBytes, &tk, full,
+               c * kBoxCols, kv, k0, b);
+      tma_load(sV + s * L::kTileBytes + c * kBoxBytes, &tv, full,
+               c * kBoxCols, kv, k0, b);
+    }
+  };
+  if (loader) {
+    mbar_expect_tx(fixed, 2 * L::kTileBytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(sQ + c * kBoxBytes, &tq, fixed, c * kBoxCols, h, q0, b);
+      tma_load(sdO + c * kBoxBytes, &tdo, fixed, c * kBoxCols, h, q0, b);
+    }
+    load(0);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x / kConsumers, t = threadIdx.x % kConsumers;
+  const int w = t >> 5, ln = t & 31;
+  const int r0 = q0 + 16 * w + (ln >> 2), r1 = r0 + 8;
+  const int cq = 2 * (ln & 3);
+  const float sl2 = sh.scale * kLog2e;
+  const int64_t q_stride = (int64_t)sh.KV * sh.G * sh.D;
+  const int64_t q_off = (int64_t)b * sh.S * q_stride + (int64_t)h * sh.D;
+  const int64_t row_off = ((int64_t)b * sh.KV * sh.G + h) * sh.S;
+
+  if (wg == 0) {
+    // Dvec of rows r0 and r1 (the four threads of a row split D), and
+    // their lse (unrolled, the loop ran slower: the note at the top)
+    float dv0 = 0.f, dv1 = 0.f;
+    for (int d = cq; d < sh.D; d += 8) {
+      if (r0 < sh.S) {
+        const float2 o2 = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(out + q_off + r0 * q_stride + d));
+        const float2 g2 = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(dout + q_off + r0 * q_stride + d));
+        dv0 = fmaf(g2.x, o2.x, fmaf(g2.y, o2.y, dv0));
+      }
+      if (r1 < sh.S) {
+        const float2 o2 = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(out + q_off + r1 * q_stride + d));
+        const float2 g2 = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(dout + q_off + r1 * q_stride + d));
+        dv1 = fmaf(g2.x, o2.x, fmaf(g2.y, o2.y, dv1));
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      dv0 += __shfl_xor_sync(0xffffffffu, dv0, o_);
+      dv1 += __shfl_xor_sync(0xffffffffu, dv1, o_);
+    }
+    if ((ln & 3) == 0) {
+      if (r0 < sh.S) dvec[row_off + r0] = dv0;
+      if (r1 < sh.S) dvec[row_off + r1] = dv1;
+    }
+    const float L0 = r0 < sh.S ? lse[row_off + r0] * kLog2e : 0.f;
+    const float L1 = r1 < sh.S ? lse[row_off + r1] * kLog2e : 0.f;
+
+    mbar_wait(fixed, 0);
+    for (int it = 0; it < hi - lo; ++it) {
+      const int s = it % kStages, k0 = (lo + it) * kTile;
+      const uint32_t tK = sK + s * L::kTileBytes, tV = sV + s * L::kTileBytes;
+      mbar_wait(bars + 8 * (1 + s), (it / kStages) & 1);
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        mma_ss(sc, desc_k(sQ, kk), desc_k(tK, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        mma_ss(dp, desc_k(sdO, kk), desc_k(tV, kk), kk);
+      wg_commit();
+      wg_wait();
+      keep(sc);
+      keep(dp);
+      mbar_arrive(bars + 8 * (1 + kStages + s));
+
+      const bool edge = need_mask(sh, q0, k0);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const float p =
+              edge && !visible(sh, top ? r0 : r1, k0 + 8 * j + cq + (e & 1))
+                  ? 0.f
+                  : ex2(sc[4 * j + e] * sl2 - (top ? L0 : L1));
+          ds[e] = p * (dp[4 * j + e] - (top ? dv0 : dv1));
+        }
+        da[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      if (it > 0) bar_sync(kBarFree, 2 * kConsumers);
+      put_frag(xDS, t, da);
+      bar_arrive(kBarDS, 2 * kConsumers);
+    }
+    return;
+  }
+
+  // warpgroup 1: dQ += dS·K over the band, all 256 columns
+  float dqa[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
+  for (int it = 0; it < hi - lo; ++it) {
+    const int s = it % kStages;
+    if (loader && it + 1 < hi - lo) load(it + 1);
+    __syncwarp();
+    uint32_t da[4][4];
+    bar_sync(kBarDS, 2 * kConsumers);
+    get_frag(xDS, t, da);
+    if (it + 1 < hi - lo) bar_arrive(kBarFree, 2 * kConsumers);
+    const uint32_t tK = sK + s * L::kTileBytes;
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(dqa[c], da[kk], desc_mn(tK, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) keep(dqa[c]);
+    keep(da);
+    mbar_arrive(bars + 8 * (1 + kStages + s));
+  }
+
+  bf16* dqb = dq + q_off;
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = c * kBoxCols + 8 * j + cq;
+      if (d >= sh.D) continue;
+      if (r0 < sh.S)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + r0 * q_stride + d) =
+            __floats2bfloat162_rn(dqa[c][4 * j] * sh.scale,
+                                  dqa[c][4 * j + 1] * sh.scale);
+      if (r1 < sh.S)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + r1 * q_stride + d) =
+            __floats2bfloat162_rn(dqa[c][4 * j + 2] * sh.scale,
+                                  dqa[c][4 * j + 3] * sh.scale);
+    }
+}
+
+// pass 2 at D = 256: dk and dv, one block per (kv tile, kv head, batch
+// row) over the G query heads and their q tiles.  Warpgroup 0: Sᵀ = K·Qᵀ,
+// Pᵀ, then dV += Pᵀ·dO; warpgroup 1: dPᵀ = V·dOᵀ, dSᵀ = Pᵀ ⊙ (dPᵀ -
+// Dvec), then dK += dSᵀ·Q.  Each forms the A operand of its second
+// product from its own tile, so only P crosses: float32, written before
+// barrier 1 (kBarP), its buffer free again after barrier 2 (kBarFree).
+// Each holds one 64 x 256 float32 accumulator (128 registers a thread),
+// so the block has no producer warp: a ninth warp would put three warps
+// on one of the SM's four sub-partitions and cap registers at 168 a
+// thread (the accumulator, a score tile and the A fragments spilled
+// there).  The first warp of warpgroup 1 fills the ring instead, one tile
+// pair ahead.
+__global__ void __launch_bounds__(2 * kConsumers, 1)
+fa_bwd_dkdv256_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dvec, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, Shape sh) {
+  constexpr int NB = 4;
+  typedef Smem256 L;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* gbase = smem_base(smem_raw);
+  const uint32_t base = smem_u32(gbase);
+  const uint32_t sK = base + L::kFixA, sV = base + L::kFixB;
+  const uint32_t sQ = base + L::kRingA, sdO = base + L::kRingB;
+  float4* xP = reinterpret_cast<float4*>(gbase + L::kP);
+  // per stage: lse of the tile's 64 rows, then their Dvec
+  float* rows = reinterpret_cast<float*>(gbase + L::kRowVals);
+  const uint32_t bars = base + L::kBars, fixed = bars;
+
+  const int kt = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kTile;
+  int qlo, qhi;
+  q_band(sh, kt, &qlo, &qhi);
+  const int n_band = qhi - qlo, n_it = sh.G * n_band;
+  // full: the loader's expect_tx and its 32 lanes' row values
+  init_barriers(bars, 33, 2 * kConsumers);
+
+  // tile pair `it`'s Q and dO tiles and row values into its stage, by the
+  // 32 lanes of warp 4 once both warpgroups have released the stage
+  const bool loader = threadIdx.x / 32 == 4;
+  const int lane = threadIdx.x & 31;
+  auto load = [&](int it) {
+    const int g = it / n_band, q0 = (qlo + it % n_band) * kTile;
+    const int h = kv * sh.G + g, s = it % kStages;
+    const uint32_t full = bars + 8 * (1 + s);
+    mbar_wait(bars + 8 * (1 + kStages + s), ((it / kStages) & 1) ^ 1);
+    const int64_t row_off = ((int64_t)b * sh.KV * sh.G + h) * sh.S;
+    float* rl = rows + s * 2 * kTile;
+    if (lane == 0) {
+      mbar_expect_tx(full, 2 * L::kTileBytes);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(sQ + s * L::kTileBytes + c * kBoxBytes, &tq, full,
+                 c * kBoxCols, h, q0, b);
+        tma_load(sdO + s * L::kTileBytes + c * kBoxBytes, &tdo, full,
+                 c * kBoxCols, h, q0, b);
+      }
+    }
+    // the rows' lse and Dvec by asynchronous copies that arrive on `full`
+    // when they land (zeros past S), so the warp does not wait for them
+    for (int r = lane; r < kTile; r += 32) {
+      const bool in = q0 + r < sh.S;
+      const int64_t at = row_off + (in ? q0 + r : 0);
+      cp_async4(rl + r, lse + at, in);
+      cp_async4(rl + kTile + r, dvec + at, in);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::
+                     "r"(full) : "memory");
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(fixed, 2 * L::kTileBytes);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(sK + c * kBoxBytes, &tk, fixed, c * kBoxCols, kv, k0, b);
+        tma_load(sV + c * kBoxBytes, &tv, fixed, c * kBoxCols, kv, k0, b);
+      }
+    }
+    if (n_it > 0) load(0);
+  }
+
+  const int wg = threadIdx.x / kConsumers, t = threadIdx.x % kConsumers;
+  const int w = t >> 5, ln = t & 31;
+  const int kr0 = k0 + 16 * w + (ln >> 2), kr1 = kr0 + 8;   // keys
+  const int cq = 2 * (ln & 3);
+  const float sl2 = sh.scale * kLog2e;
+  // warpgroup 0 multiplies K and Q, then accumulates dV against dO;
+  // warpgroup 1 multiplies V and dO, then accumulates dK against Q
+  const uint32_t sA = wg == 0 ? sK : sV;
+  const uint32_t sB = wg == 0 ? sQ : sdO, sC = wg == 0 ? sdO : sQ;
+  float acc[NB][32];                   // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  mbar_wait(fixed, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (qlo + it % n_band) * kTile, s = it % kStages;
+    const float* rl = rows + s * 2 * kTile;
+    if (loader && it + 1 < n_it) load(it + 1);
+    mbar_wait(bars + 8 * (1 + s), (it / kStages) & 1);
+    const bool edge = need_mask(sh, q0, k0);
+    // transposed tiles: rows are keys, columns queries
+    float x[32];                       // Sᵀ, then Pᵀ (0); dPᵀ (1)
+    uint32_t fr[4][4];                 // Pᵀ (0) or dSᵀ (1) as A fragments
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk)
+      mma_ss(x, desc_k(sA, kk), desc_k(sB + s * L::kTileBytes, kk), kk);
+    wg_commit();
+    wg_wait();
+    keep(x);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + cq;
+        const float2 lq = *reinterpret_cast<const float2*>(rl + qc);
+        const float l0 = lq.x * kLog2e, l1 = lq.y * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] =
+              edge && !visible(sh, q0 + qc + (e & 1), e < 2 ? kr0 : kr1)
+                  ? 0.f
+                  : ex2(x[4 * j + e] * sl2 - ((e & 1) ? l1 : l0));
+      }
+      if (it > 0) bar_sync(kBarFree, 2 * kConsumers);
+      put_f32(xP, t, x);
+      bar_arrive(kBarP, 2 * kConsumers);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        fr[j >> 1][(j & 1) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);
+        fr[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+      }
+    } else {
+      bar_sync(kBarP, 2 * kConsumers);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + cq;
+        const float2 dd = *reinterpret_cast<const float2*>(rl + kTile + qc);
+        const float4 p = xP[j * kConsumers + t];
+        fr[j >> 1][(j & 1) * 2] = pack_bf16(p.x * (x[4 * j] - dd.x),
+                                            p.y * (x[4 * j + 1] - dd.y));
+        fr[j >> 1][(j & 1) * 2 + 1] =
+            pack_bf16(p.z * (x[4 * j + 2] - dd.x),
+                      p.w * (x[4 * j + 3] - dd.y));
+      }
+      if (it + 1 < n_it) bar_arrive(kBarFree, 2 * kConsumers);
+    }
+
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(acc[c], fr[kk], desc_mn(sC + s * L::kTileBytes, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) keep(acc[c]);
+    keep(fr);
+    mbar_arrive(bars + 8 * (1 + kStages + s));
+  }
+
+  const int64_t k_stride = (int64_t)sh.KV * sh.D;
+  const int64_t k_off = (int64_t)b * sh.S * k_stride + (int64_t)kv * sh.D;
+  bf16* ob = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : sh.scale;
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = c * kBoxCols + 8 * j + cq;
+      if (d >= sh.D) continue;
+      if (kr0 < sh.S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + k_off + kr0 * k_stride + d) =
+            __floats2bfloat162_rn(acc[c][4 * j] * mul,
+                                  acc[c][4 * j + 1] * mul);
+      if (kr1 < sh.S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + k_off + kr1 * k_stride + d) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2] * mul,
+                                  acc[c][4 * j + 3] * mul);
     }
 }
 
@@ -1727,22 +2173,28 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
       (err = make_map(&tv, v, sh.KV, sh)) != cudaSuccess ||
       (err = make_map(&tdo, dout, sh.KV * sh.G, sh)) != cudaSuccess)
     return err;
-  constexpr int kDqO = tc::dq_out_boxes<NB>();
-  constexpr int kKvO = tc::dkdv_out_boxes<NB>();
-  auto dq_kernel = tc::fa_bwd_dq_tc_kernel<NB, kDqO>;
-  auto dkdv_kernel = tc::fa_bwd_dkdv_tc_kernel<NB, kKvO>;
-  const int smem = tc::Smem<NB>::kBytes;
+  const int n_t = (sh.S + kTile - 1) / kTile;
+  decltype(&tc::fa_bwd_dq256_kernel) dq_kernel;
+  decltype(&tc::fa_bwd_dkdv256_kernel) dkdv_kernel;
+  int smem = tc::Smem<NB>::kBytes, threads = tc::kBwdThreads;
+  if constexpr (NB < 4) {
+    dq_kernel = tc::fa_bwd_dq_tc_kernel<NB>;
+    dkdv_kernel = tc::fa_bwd_dkdv_tc_kernel<NB>;
+  } else {
+    // two consumer warpgroups, no producer warp
+    dq_kernel = tc::fa_bwd_dq256_kernel;
+    dkdv_kernel = tc::fa_bwd_dkdv256_kernel;
+    smem = tc::Smem256::kBytes;
+    threads = 2 * tc::kConsumers;
+  }
   if ((err = allow_smem(dq_kernel, smem)) != cudaSuccess ||
       (err = allow_smem(dkdv_kernel, smem)) != cudaSuccess)
     return err;
-  const int n_t = (sh.S + kTile - 1) / kTile;
-  dq_kernel<<<dim3(n_t * tc::out_groups<kDqO>(sh.D), sh.KV * sh.G, sh.B),
-              tc::kBwdThreads, smem, stream>>>(
+  dq_kernel<<<dim3(n_t, sh.KV * sh.G, sh.B), threads, smem, stream>>>(
       tq, tk, tv, tdo, (const tc::bf16*)out, (const tc::bf16*)dout,
       (const float*)lse, (float*)dvec, (tc::bf16*)dq, sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkdv_kernel<<<dim3(n_t * tc::out_groups<kKvO>(sh.D), sh.KV, sh.B),
-                tc::kBwdThreads, smem, stream>>>(
+  dkdv_kernel<<<dim3(n_t, sh.KV, sh.B), threads, smem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)dvec,
       (tc::bf16*)dk, (tc::bf16*)dv, sh);
   return cudaGetLastError();
@@ -1879,7 +2331,7 @@ int fa_bf16_smem_bytes(int backward, int D) {
   const int nb = D <= 64 ? 1 : D <= 128 ? 2 : 4;
   if (backward)
     return nb == 1 ? tc::Smem<1>::kBytes
-                   : nb == 2 ? tc::Smem<2>::kBytes : tc::Smem<4>::kBytes;
+                   : nb == 2 ? tc::Smem<2>::kBytes : tc::Smem256::kBytes;
   return nb == 1 ? tc::Smem<1>::kFwdBytes
                  : nb == 2 ? tc::Smem<2>::kFwdBytes : tc::Smem<4>::kFwdBytes;
 }

@@ -9,9 +9,10 @@ bfloat16 runs on the tensor cores (``wgmma`` fed by TMA), float32 on the
 CUDA cores in full float32.  ``flash_attention.fwd_launches`` and
 ``.bwd_launches`` count the kernels' launches (one forward kernel per
 forward call; the dq and dk/dv kernels of one backward call count once),
-not the CPU path's calls; ``.fwd_windowed_launches`` counts those forward
-launches that had a sliding window.  Forward and backward take a head
-width up to 256; above 128 the backward's blocks split the output columns
+not the CPU path's calls; ``.fwd_windowed_launches`` and
+``.bwd_windowed_launches`` count those launches that had a sliding window.
+Forward and backward take a head width up to 256; above 128 a backward
+block holds two consumer warpgroups that split each tile pair's products
 (``csrc/flash_attention.cu`` says how).
 """
 from __future__ import annotations
@@ -170,6 +171,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
             int(causal), int(window), q.device.index, _stream(q))
     _raise_on(err, "backward")
     flash_attention.bwd_launches += 1
+    if window > 0:
+        flash_attention.bwd_windowed_launches += 1
     return dq, dk, dv
 
 
@@ -205,3 +208,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.fwd_launches = 0
 flash_attention.fwd_windowed_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.bwd_windowed_launches = 0

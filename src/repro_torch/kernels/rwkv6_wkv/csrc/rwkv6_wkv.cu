@@ -1,6 +1,6 @@
-// RWKV6 WKV recurrence, forward and backward, for Hopper (sm_90a): the
-// forward an exact chunked form whose steps inside a chunk run in
-// parallel, the backward a reverse sweep over recomputed states.
+// RWKV6 WKV recurrence, forward and backward, for Hopper (sm_90a): both
+// an exact chunked form whose steps inside a chunk run in parallel, the
+// backward over the chunks from the last.
 //
 // Replaces the TPU kernel `wkv_pallas`
 // (src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76, body `wkv_kernel` :29).  It
@@ -86,43 +86,70 @@
 //     the second half fill it with no tensor map and no barrier protocol; a
 //     ragged last chunk copies only its rows, and never reads past its
 //     (batch, head) row.
-
 //
 // The backward (`wkv_bwd_kernel`) replaces what the reference
 // differentiates, its plain-JAX `wkv_chunked` (src/repro/models/rwkv6.py:54;
-// the Pallas kernel has no backward).  From the gradients of out and of
-// S_last, a reverse sweep carries dS (K x V float32, seeded by dS_last);
-// with G = r_t ⊗ do_t and kv = k_t ⊗ v_t, each step takes what autograd of
-// the step takes, in its order:
+// the Pallas kernel has no backward).  Step by step it is a reverse sweep
+// carrying dS (K x V, seeded by dS_last), with G = r_t ⊗ do_t, kv = k_t ⊗
+// v_t (ref.py::wkv_bwd_ref):
 //
-//   dr_t[k] = Σ_j do_t[j]·(S_{t-1}[k,j] + u[k]·kv[k,j])
-//   gkv     = u[k]·G[k,j] + dS_t[k,j]
-//   dk_t[k] = Σ_j gkv[k,j]·v_t[j],   dv_t[j] = Σ_k gkv[k,j]·k_t[k]
-//   dw_t[k] = Σ_j dS_t[k,j]·S_{t-1}[k,j]
-//   du[k]  += Σ_j G[k,j]·kv[k,j]            (over time and batch)
-//   dS_{t-1} = diag(w_t)·dS_t + G
+//   dr_t = (S_{t-1} + u ⊙ kv)·do_t,   dk_t = (u ⊙ G + dS_t)·v_t
+//   dv_t = (u ⊙ G + dS_t)ᵀ·k_t,       dw_t = Σ_j dS_t ⊙ S_{t-1}
+//   du  += Σ_j G ⊙ kv,                dS_{t-1} = diag(w_t) dS_t + G
 //
-// (ref.py::wkv_bwd_ref writes it out in plain torch).  It needs S_{t-1}
-// at every step, backwards: one block of 256 threads per (batch, head)
-// runs the recurrence forward once and keeps the state before every chunk
-// of kBwdL = 16 steps in device memory (a float32 K x V a chunk: 1 GB for
-// 30 sequences x 32 heads x 1,024 steps at K = V = 64, one layer's at a
-// time).  Then, chunk by chunk from the last, it recomputes the chunk's
-// states from its checkpoint twice: once keeping the state before each of
-// its four sub-chunks of 4 steps in shared memory (64 KB at K = V = 64),
-// then, sub-chunk by sub-chunk from the last, its 4 states into
-// registers, which the sweep back reads.  (The first design kept the 16
-// states of a chunk in a device-memory scratch of its own: 32 KB moved a
-// step and block, 31 GB a call at the path's shape, and 13.4 ms.)  A
-// thread holds V/(256/K) entries of one row k of S and of dS: the sums over
-// j are shuffles among the row's threads; the sums over k for dv a
-// reduce-scatter among a warp's rows (each round halves what a lane
-// keeps), then the 8 warps' partials summed in shared memory in a fixed
-// order.  du is summed over time in each block, then over the batch by
-// `wkv_bwd_du_kernel` in a fixed order: no atomics.  Products of w only,
-// no exp or log.  What bounds it: the chain of steps a block runs, each
-// a few dependent shuffle rounds and some 7·V/(256/K) FMAs a thread; two
-// blocks an SM hide each other's latency.
+// It runs in the forward's exact chunks of L = kBwdL = 16 steps instead:
+// every gradient of a chunk depends only on the state S_in before it and
+// on dS_out, the gradient of the state after it, so the chain across the
+// sequence is S/L chunk steps.  With M[t,s] = w[s+1:t] and, over V, P =
+// do·vᵀ, Z = do·S_inᵀ, Y = v·dS_outᵀ, C = Σ_j dS_out ⊙ S_in:
+//
+//   dr_t  = w[0:t] ⊙ Z_t + Σ_{s<t} P[t,s] M[t,s] ⊙ k_s + u ⊙ k_t P[t,t]
+//   dk_s  = w[s+1:L] ⊙ Y_s + Σ_{t>s} P[t,s] M[t,s] ⊙ r_t + u ⊙ r_s P[s,s]
+//   dv    = (k ⊙ w[s+1:L])·dS_out + Aᵀ·do   (A: the forward's, u on its
+//           diagonal)
+//   dS_in = diag(w[0:L]) dS_out + (r ⊙ w[0:t])ᵀ·do
+//   dw_t  = w[0:t] w[t+1:L] ⊙ C + w[t+1:L] ⊙ Σ_{s<t} M[t,s] k_s ⊙ Y_s
+//         + w[0:t] ⊙ Σ_{q>t} M[q,t] r_q ⊙ Z_q
+//         + Σ_{s<t<q} M[t,s] M[q,t] k_s ⊙ r_q P[q,s]
+//
+// dw is Σ_j dS_t ⊙ S_{t-1} with both factors written over the chunk's
+// intervals, the four products of their two parts each: no term divides
+// by w, and (as in the forward) every decay is a product of w over an
+// interval, so the kernel calls neither exp nor log.
+// `ref.py::wkv_bwd_chunked_exact` is this algorithm in plain torch, held
+// to wkv_bwd_ref and to jax.vjp of the reference on the CPU.
+//
+// What bounds it on this card.  The work is ~12·K·V float32 operations a
+// step and head (0.7212 ms at 67 TFLOP/s at the training path's (30, 32,
+// 1024, 64, 64)).  The reverse sweep a step at a time (the first design, one
+// block a (batch, head) walking 1,024 steps, each a few rounds of
+// shuffles) took 10.33 ms, 7.0 %: its chain of dependent steps bounded
+// it.  Here one block of 256 threads per (batch, head), 960 blocks, two an
+// SM (`-Xptxas -v`: 128 registers, 28 B of spill stores; 106,240 B of
+// shared memory at K = V = 64 in bf16):
+//   * pass 1, the chunked state pass: S <- diag(w[0:L]) S + (k ⊙
+//     w[s+1:L])ᵀ·v on the tensor cores, two chunks an iteration, the state
+//     before each chunk to a device checkpoint (float32 K x V a chunk: 1
+//     GB written and read again at the path's shape, 0.6 ms of bytes);
+//   * pass 2, chunks from the last, five barriers a chunk: v, do and the
+//     chunk's r, k, w by column into float32; Z, Y, P on the tensor cores
+//     (3xTF32 `mma.sync`, as the forward); then the pairs (s, t) on the
+//     CUDA cores, warp w taking steps w and L-1-w of every column, the
+//     same code in every warp (its loops run over its half of the chunk,
+//     the terms outside the step's span zero), A's rows summed over k by
+//     shuffles; then dv and the new dS on the tensor cores.  The next
+//     chunk's rows (a cp.async ring of two stages) and checkpoint (a
+//     buffer of its own) are copied while a chunk computes.
+// The pairs on the CUDA cores and the checkpoints' traffic bound it now.
+// du is summed over the chunks in each warp, the warps in order, then over
+// the batch by `wkv_bwd_du_kernel` in order: no atomics, deterministic.
+// The V columns are not split over blocks: 960 blocks fill the card 3.6
+// times over, and a split would repeat the pairs' work (P, Z and the sums
+// over k are per tile) and need a sum across blocks.  Tried and not kept
+// (`kernels/backward_ab.py`, 3.98-4.05 ms shipped): each warp's loops
+// specialised by template to its two steps (eight code paths, less
+// arithmetic), 5.07-5.14 ms; the loop over a lane's two columns
+// unrolled, 4.05-4.08 ms.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -262,12 +289,13 @@ struct FragB {                       // an 8 x 8 B fragment, split
     for (int i = 0; i < 2; ++i) split_tf32(x[i], hi[i], lo[i]);
   }
 };
-// EXACT_B: b holds values that TF32 represents exactly (bfloat16 inputs),
-// so bl = 0 and its product is skipped
-template <bool EXACT_B = false>
+// EXACT_A / EXACT_B: a / b holds values that TF32 represents exactly
+// (bfloat16 inputs), so its low part is 0 and the product with it is
+// skipped
+template <bool EXACT_A = false, bool EXACT_B = false>
 __device__ __forceinline__ void mma_3xtf32(float* d, float* e, const FragA& a,
                                            const FragB& b) {
-  mma_tf32(e, a.lo, b.hi);
+  if constexpr (!EXACT_A) mma_tf32(e, a.lo, b.hi);
   if constexpr (!EXACT_B) mma_tf32(e, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
 }
@@ -584,8 +612,8 @@ wkv_fwd_chunked_kernel(const typename C::E* __restrict__ r,
           ldsm_x4(X + (lane % 16) * XS + i + lane / 16 * 4, fa);
           const float fb[2] = {yp[0], yp[4 * YS]};
           if (i >= K && kExactV)
-            mma_3xtf32<true>(acc[i / 8 % 2][0], acc[i / 8 % 2][1], FragA(fa),
-                             FragB(fb));
+            mma_3xtf32<false, true>(acc[i / 8 % 2][0], acc[i / 8 % 2][1],
+                                    FragA(fa), FragB(fb));
           else
             mma_3xtf32(acc[i / 8 % 2][0], acc[i / 8 % 2][1], FragA(fa),
                        FragB(fb));
@@ -627,7 +655,7 @@ wkv_fwd_chunked_kernel(const typename C::E* __restrict__ r,
             const float* vy =
                 VB + (kk * 8 + tq) * YS + tile_of(i) % NT8 * 8 + g;
             const float fb[2] = {vy[0], vy[4 * YS]};
-            mma_3xtf32<kExactV>(st[i], e[i][kk], a, FragB(fb));
+            mma_3xtf32<false, kExactV>(st[i], e[i][kk], a, FragB(fb));
           }
         }
 #pragma unroll
@@ -691,10 +719,13 @@ cudaError_t dispatch_dtype(int dtype, int K, int V, F f) {
 }
 
 // ------------------------------------------------------------------------
-// backward: one block per (batch, head), a reverse sweep over chunks of
-// kBwdL steps whose states are recomputed from checkpoints
+// backward: one block per (batch, head).  A chunked state pass keeps the
+// state before each chunk of kBwdL steps; then, chunk by chunk from the
+// last, every gradient of the chunk is computed in parallel from that
+// state and the dS carried in from the later chunks
 // ------------------------------------------------------------------------
 constexpr int kBwdL = 16;
+constexpr int kBwdWarps = kThreads / 32;
 
 __device__ __forceinline__ float cvt_out(float x, float*) { return x; }
 __device__ __forceinline__ __nv_bfloat16 cvt_out(float x, __nv_bfloat16*) {
@@ -703,216 +734,542 @@ __device__ __forceinline__ __nv_bfloat16 cvt_out(float x, __nv_bfloat16*) {
 
 template <typename T, int K_, int V_>
 struct BwdCfg {
-  static constexpr int K = K_, V = V_, L = kBwdL;
-  static constexpr int SUB = 4, NSUB = L / SUB;  // sub-chunks of a chunk
-  static constexpr int TPR = kThreads / K;       // threads a row of S
-  static constexpr int CPT = V / TPR;            // its columns a thread
-  static constexpr int RB = 32 / TPR;            // rows a warp holds
-  static constexpr int NW = kThreads / 32;       // warps
-  static_assert(TPR <= 32 && CPT >= 1, "a row's threads share one warp");
-  // floats: r, k, w (L x K); v, do (L x V); u (K); staged dr, dk, dw
-  // (L x K); the warps' dv partials of a sub-chunk (SUB x NW x V); the
-  // state before each sub-chunk (NSUB x K x V)
-  static constexpr int SMEM = 4 * (6 * L * K + 2 * L * V + K + SUB * NW * V +
-                                   NSUB * K * V);
+  using E = T;
+  static constexpr int K = K_, V = V_, L = kBwdL, NST = 2;
+  // float row strides: a fragment load whose lanes take rows g and
+  // columns tq hits 32 distinct banks; CS keeps a column's 16-byte loads
+  // apart
+  static constexpr int KP = K + 4, VP = V + 4, LP = L + 4, CS = L + 4;
+  static constexpr int KPT = K < 32 ? 1 : K / 32;     // columns k a lane
+  // one stage of the ring: r, k (L x K, T), w (L x K, f32), v, do (L x V,
+  // T); the state before the chunk has one buffer (K x VP, f32) of its own
+  static constexpr int R_B = L * K * (int)sizeof(T), W_B = L * K * 4;
+  static constexpr int V_B = L * V * (int)sizeof(T), S_B = K * VP * 4;
+  static constexpr int STAGE_B = 2 * R_B + W_B + 2 * V_B;
+  static constexpr int TT = (K / 16) * (V / 8);        // 16 x 8 tiles of S
+  static constexpr int TPW = (TT + kBwdWarps - 1) / kBwdWarps;
+  // the float32 working area, offsets in floats: v, do (L x VP); dS (K x
+  // VP); Z, Y, r ⊙ w[0:t], k ⊙ w[t+1:L] (L x KP); P, Aᵀ (L x LP); the
+  // chunk's r, k and w by column (K x CS each); w[0:L], u, C, du
+  static constexpr int O_DOF = L * VP, O_DS = 2 * L * VP;
+  static constexpr int O_Z = O_DS + K * VP, O_Y = O_Z + L * KP;
+  static constexpr int O_RP = O_Y + L * KP, O_KD = O_RP + L * KP;
+  static constexpr int O_P = O_KD + L * KP, O_AT = O_P + L * LP;
+  static constexpr int O_COL = O_AT + L * LP, O_WT = O_COL + 3 * K * CS;
+  static constexpr int O_U = O_WT + K, O_CC = O_U + K, O_DU = O_CC + K;
+  static constexpr int F = O_DU + kBwdWarps * K;
+  // pass 1's ring, in the same bytes: two stages of two chunks' k, w, v
+  static constexpr int P1C_B = R_B + W_B + V_B, P1_B = 2 * P1C_B;
+  static constexpr int RING_B = NST * STAGE_B + S_B > 2 * P1_B
+                                    ? NST * STAGE_B + S_B : 2 * P1_B;
+  static constexpr int SMEM = RING_B + 4 * F;
+  static_assert(L == 2 * kBwdWarps, "a warp takes steps t and L-1-t");
+  static_assert(R_B % 16 == 0 && V_B % 16 == 0 && V % 4 == 0,
+                "16-byte copies");
+  static_assert(O_P % 4 == 0 && O_COL % 4 == 0 && LP % 4 == 0 &&
+                CS % 4 == 0, "16-byte loads of rows of P and of columns");
 };
 
-template <typename T, int K, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ w,
-               const T* __restrict__ u, const T* __restrict__ dout,
-               const float* __restrict__ ds_last, T* __restrict__ dr,
-               T* __restrict__ dk, T* __restrict__ dv,
-               float* __restrict__ dw, float* __restrict__ du_part,
-               float* __restrict__ ckpt, int H, int S) {
-  using C = BwdCfg<T, K, V>;
-  constexpr int L = C::L, SUB = C::SUB, NSUB = C::NSUB, TPR = C::TPR;
-  constexpr int CPT = C::CPT, RB = C::RB, NW = C::NW;
-  extern __shared__ __align__(16) float sm[];
-  float* sr = sm;
-  float* sk = sr + L * K;
-  float* sw = sk + L * K;
-  float* sv = sw + L * K;
-  float* sdo = sv + L * V;
-  float* su = sdo + L * V;
-  float* odr = su + K;
-  float* odk = odr + L * K;
-  float* odw = odk + L * K;
-  float* red = odw + L * K;
-  float* sub = red + SUB * NW * V;
+// N consecutive floats at p (16-byte aligned), by float4 loads
+template <int N>
+__device__ __forceinline__ void ld_row(const float* p, float* o) {
+#pragma unroll
+  for (int i = 0; i < (N + 3) / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(p)[i];
+    o[4 * i] = x.x;
+    o[4 * i + 1] = x.y;
+    o[4 * i + 2] = x.z;
+    o[4 * i + 3] = x.w;
+  }
+}
 
-  const int tid = threadIdx.x, bh = blockIdx.x, hh = bh % H;
-  const int row = tid / TPR, cg = tid % TPR, j0 = cg * CPT;
-  const int warp = tid >> 5, lane = tid & 31;
+// step t of the chunk, column k (rc, kc, wc: its r, k, w over the chunk,
+// rows past the sequence r = k = 0, w = 1), t in the first half of the
+// chunk (HI false: t < L/2) or the second (HI true): dr, dk and dw,
+// r_t ⊙ w[0:t] and k_t ⊙ w[t+1:L] for the products, row t of A into xa
+// (still to be summed over k) and du.  al[s] = M[t,s] k_s (s < t) and
+// be[q] = M[q,t] r_q (q > t) with M[t,s] = w[s+1:t], each a running
+// product of w, and 0 elsewhere: every warp runs the same code, its loops
+// over its half's span with the terms outside [0, t) and (t, L) zero.
+// F: the working area; dr, dk, dw: the chunk's first row of this (batch,
+// head)
+template <class C, bool HI>
+__device__ __forceinline__ void bwd_step(float* F, const float* rc,
+                                         const float* kc, const float* wc,
+                                         int t, int k, int n, float* xa,
+                                         float& du, typename C::E* dr,
+                                         typename C::E* dk, float* dw) {
+  constexpr int L = C::L, K = C::K, KP = C::KP, LP = C::LP, H = L / 2;
+  constexpr int NS = HI ? L : H;           // s < t < NS
+  constexpr int Q0 = HI ? H + 1 : 1;       // Q0 <= q: q > t >= Q0 - 1
+  const float* P = F + C::O_P;
+  const float* Z = F + C::O_Z;
+  const float* Y = F + C::O_Y;
+  float al[NS], be[L];
+  float pre = 1.f, suf = 1.f;                    // w[0:t], w[t+1:L]
+#pragma unroll
+  for (int s = NS - 1; s >= 0; --s) {
+    const bool in = s < t;
+    al[s] = in ? kc[s] * pre : 0.f;
+    pre = in ? pre * wc[s] : pre;
+  }
+#pragma unroll
+  for (int q = Q0; q < L; ++q) {
+    const bool in = q > t;
+    be[q] = in ? rc[q] * suf : 0.f;
+    suf = in ? suf * wc[q] : suf;
+  }
+  const float* col = F + C::O_COL + k * C::CS;
+  const float rt = col[t], kt = col[K * C::CS + t], uk = F[C::O_U + k];
+  const float ptt = P[t * LP + t], bonus = uk * ptt;
+  float prow[NS];
+  ld_row<NS>(P + t * LP, prow);                  // P[t][s]
+  float ar = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f, ak = 0.f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    ar = fmaf(al[s], prow[s], ar);
+    a2 = fmaf(al[s], Y[s * KP + k], a2);
+  }
+  // a4 = Σ_q be[q] Σ_s al[s] P[q][s]; the rows of P by 16-byte loads
+#pragma unroll
+  for (int q = Q0; q < L; ++q) {
+    float pq[NS];
+    ld_row<NS>(P + q * LP, pq);
+    float h = 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) h = fmaf(al[s], pq[s], h);
+    a4 = fmaf(be[q], h, a4);
+    ak = fmaf(be[q], P[q * LP + t], ak);
+    a3 = fmaf(be[q], Z[q * KP + k], a3);
+  }
+  const float g_r = fmaf(pre, Z[t * KP + k], ar) + kt * bonus;
+  const float g_k = fmaf(suf, Y[t * KP + k], ak) + rt * bonus;
+  const float g_w = pre * suf * F[C::O_CC + k] + suf * a2 + pre * a3 + a4;
+  du = fmaf(rt * kt, ptt, du);
+  F[C::O_RP + t * KP + k] = rt * pre;
+  F[C::O_KD + t * KP + k] = kt * suf;
+  if (HI && t == L - 1) F[C::O_WT + k] = pre * wc[L - 1];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    xa[s] = fmaf(rt, s == t ? uk * kt : al[s], xa[s]);
+  if (t < n) {
+    dr[t * K + k] = cvt_out(g_r, dr);
+    dk[t * K + k] = cvt_out(g_k, dk);
+    dw[t * K + k] = g_w;
+  }
+}
+
+// warp w's share of a chunk: steps w and L-1-w for its lanes' columns
+// (each column's r, k, w by 16-byte loads); then rows w and L-1-w of A
+// summed over k (the lanes' partials in a fixed butterfly) into AT's
+// columns (AT[s][t] = A[t][s], 0 for s > t)
+template <class C>
+__device__ __forceinline__ void bwd_pairs(float* F, int warp, int lane,
+                                          int n, float* du,
+                                          typename C::E* dr,
+                                          typename C::E* dk, float* dw) {
+  constexpr int L = C::L, K = C::K, LP = C::LP, CS = C::CS, H = L / 2;
+  const int t0 = warp, t1 = L - 1 - warp;
+  float xa0[H], xa1[L];
+#pragma unroll
+  for (int s = 0; s < H; ++s) xa0[s] = 0.f;
+#pragma unroll
+  for (int s = 0; s < L; ++s) xa1[s] = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < C::KPT; ++i) {
+    const int k = lane + 32 * i;
+    if (k < K) {
+      float rc[L], kc[L], wc[L];
+      const float* col = F + C::O_COL + k * CS;
+      ld_row<L>(col, rc);
+      ld_row<L>(col + K * CS, kc);
+      ld_row<L>(col + 2 * K * CS, wc);
+      float d = 0.f;
+      bwd_step<C, false>(F, rc, kc, wc, t0, k, n, xa0, d, dr, dk, dw);
+      bwd_step<C, true>(F, rc, kc, wc, t1, k, n, xa1, d, dr, dk, dw);
+#pragma unroll
+      for (int j = 0; j < C::KPT; ++j)     // du[i], the index in registers
+        if (j == i) du[j] += d;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int s = 0; s < H; ++s)
+      xa0[s] += __shfl_xor_sync(0xffffffffu, xa0[s], o);
+#pragma unroll
+    for (int s = 0; s < L; ++s)
+      xa1[s] += __shfl_xor_sync(0xffffffffu, xa1[s], o);
+  }
+  if (lane == 0) {
+    float* AT = F + C::O_AT;
+#pragma unroll
+    for (int s = 0; s < L; ++s) {
+      AT[s * LP + t0] = s < H ? xa0[s < H ? s : 0] : 0.f;
+      AT[s * LP + t1] = xa1[s];
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, 2)
+wkv_bwd_kernel(const typename C::E* __restrict__ r,
+               const typename C::E* __restrict__ k,
+               const typename C::E* __restrict__ v,
+               const float* __restrict__ w,
+               const typename C::E* __restrict__ u,
+               const typename C::E* __restrict__ dout,
+               const float* __restrict__ ds_last,
+               typename C::E* __restrict__ dr, typename C::E* __restrict__ dk,
+               typename C::E* __restrict__ dv, float* __restrict__ dw,
+               float* __restrict__ du_part, float* __restrict__ ckpt, int H,
+               int S) {
+  using T = typename C::E;
+  constexpr int K = C::K, V = C::V, L = C::L, KP = C::KP, VP = C::VP;
+  constexpr int LP = C::LP, CS = C::CS, TPW = C::TPW, NT8 = V / 8;
+  constexpr int R_B = C::R_B, W_B = C::W_B, V_B = C::V_B;
+  constexpr bool EX = sizeof(T) == 2;    // bf16 v and do are exact in TF32
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* SIN = reinterpret_cast<float*>(smem + C::NST * C::STAGE_B);
+  float* F = reinterpret_cast<float*>(smem + C::RING_B);
+  float* VF = F;
+  float* DOF = F + C::O_DOF;
+  float* DS = F + C::O_DS;
+  float* Z = F + C::O_Z;
+  float* Y = F + C::O_Y;
+  float* RP = F + C::O_RP;
+  float* KD = F + C::O_KD;
+  float* P = F + C::O_P;
+  float* AT = F + C::O_AT;
+  float* COL = F + C::O_COL;
+  float* WT = F + C::O_WT;
+  float* U = F + C::O_U;
+  float* CC = F + C::O_CC;
+  float* DU = F + C::O_DU;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;           // fragment coordinates
+  const int bh = blockIdx.x;
   const int n_chunks = (S + L - 1) / L;
   const int64_t kb = (int64_t)bh * S * K, vb = (int64_t)bh * S * V;
-  for (int i = tid; i < K; i += kThreads) su[i] = to_f(u[hh * K + i]);
+  float* ck_b = ckpt + (int64_t)bh * n_chunks * K * V;
 
-  // chunk c's rows into shared memory (zeros past S); with_rdo: r and do
-  // too, which the forward pass does not need
-  auto load = [&](int c, bool with_rdo) {
-    const int t0 = c * L, n = min(L, S - t0);
-    for (int i = tid; i < L * K; i += kThreads) {
-      const bool in = i < n * K;
-      const int64_t g = kb + (int64_t)t0 * K + i;
-      sk[i] = in ? to_f(k[g]) : 0.f;
-      sw[i] = in ? w[g] : 0.f;
-      if (with_rdo) sr[i] = in ? to_f(r[g]) : 0.f;
+  auto stage = [&](int i) { return smem + (i % C::NST) * C::STAGE_B; };
+  // chunk c's rows into ring slot i by 16-byte cp.async (an empty group
+  // where c is out of range)
+  auto issue = [&](int c, int i) {
+    if (c >= 0) {
+      const int t0 = c * L, n = min(L, S - t0);
+      unsigned char* st = stage(i);
+      const int rk = n * K * (int)sizeof(T) / 16;
+      const int rv = n * V * (int)sizeof(T) / 16;
+      const char* kg = reinterpret_cast<const char*>(k + kb + (int64_t)t0 * K);
+      const char* wg = reinterpret_cast<const char*>(w + kb + (int64_t)t0 * K);
+      const char* vg = reinterpret_cast<const char*>(v + vb + (int64_t)t0 * V);
+      for (int p = tid; p < rk; p += kThreads)
+        cp_async16(st + R_B + p * 16, kg + p * 16);
+      for (int p = tid; p < n * K / 4; p += kThreads)
+        cp_async16(st + 2 * R_B + p * 16, wg + p * 16);
+      for (int p = tid; p < rv; p += kThreads)
+        cp_async16(st + 2 * R_B + W_B + p * 16, vg + p * 16);
+      const char* rg =
+          reinterpret_cast<const char*>(r + kb + (int64_t)t0 * K);
+      const char* dg =
+          reinterpret_cast<const char*>(dout + vb + (int64_t)t0 * V);
+      for (int p = tid; p < rk; p += kThreads)
+        cp_async16(st + p * 16, rg + p * 16);
+      for (int p = tid; p < rv; p += kThreads)
+        cp_async16(st + 2 * R_B + W_B + V_B + p * 16, dg + p * 16);
     }
-    for (int i = tid; i < L * V; i += kThreads) {
-      const bool in = i < n * V;
-      const int64_t g = vb + (int64_t)t0 * V + i;
-      sv[i] = in ? to_f(v[g]) : 0.f;
-      if (with_rdo) sdo[i] = in ? to_f(dout[g]) : 0.f;
+    cp_async_commit();
+  };
+  // chunk c's checkpoint (the state before it) into SIN, its rows VP
+  // floats apart
+  auto issue_state = [&](int c) {
+    if (c >= 0) {
+      const float* cg = ck_b + (int64_t)c * K * V;
+      constexpr int RQ = V / 4;                    // copies a row of S
+      for (int p = tid; p < K * RQ; p += kThreads)
+        cp_async16(SIN + (p / RQ) * VP + p % RQ * 4, cg + p * 4);
+    }
+    cp_async_commit();
+  };
+  // the 16 x 8 tiles of a K x V matrix a warp holds as mma accumulators
+  auto tile_at = [&](int i, int& m0, int& n0) {
+    const int tl = warp * TPW + i;
+    m0 = tl / NT8 * 16;
+    n0 = tl % NT8 * 8;
+    return tl < C::TT;
+  };
+
+  for (int j = tid; j < K; j += kThreads)
+    U[j] = to_f(u[(int64_t)(bh % H) * K + j]);
+
+  // pass 1: S <- diag(w[0:L]) S + (k ⊙ w[s+1:L])ᵀ·v a chunk, on the
+  // tensor cores, two chunks an iteration (half the barriers and waits
+  // for copies); the state before chunk c is written to its checkpoint.
+  // Only chunks 0 .. n_chunks-2 are read, two a stage of the pass's own
+  // ring (k, w, v a chunk), and each pair's second chunk takes RP, DOF
+  // and CC as its KD, VF and WT.
+  auto issue1 = [&](int c, int i) {
+    for (int j = 0; j < 2 && c + j < n_chunks - 1; ++j) {
+      const int t0 = (c + j) * L;
+      unsigned char* st = smem + (i % 2) * C::P1_B + j * C::P1C_B;
+      const char* kg = reinterpret_cast<const char*>(k + kb + (int64_t)t0 * K);
+      const char* wg = reinterpret_cast<const char*>(w + kb + (int64_t)t0 * K);
+      const char* vg = reinterpret_cast<const char*>(v + vb + (int64_t)t0 * V);
+      for (int p = tid; p < R_B / 16; p += kThreads)
+        cp_async16(st + p * 16, kg + p * 16);
+      for (int p = tid; p < W_B / 16; p += kThreads)
+        cp_async16(st + R_B + p * 16, wg + p * 16);
+      for (int p = tid; p < V_B / 16; p += kThreads)
+        cp_async16(st + R_B + W_B + p * 16, vg + p * 16);
+    }
+    cp_async_commit();
+  };
+  auto put_ckpt = [&](int c, const float (&st)[TPW][4]) {
+    float* ck = ck_b + (int64_t)c * K * V;
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      int m0, n0;
+      if (!tile_at(i, m0, n0)) continue;
+      st2(ck + (m0 + g) * V + n0 + 2 * tq, st[i][0], st[i][1]);
+      st2(ck + (m0 + g + 8) * V + n0 + 2 * tq, st[i][2], st[i][3]);
     }
   };
-  // one step of the state: S <- diag(w_s) S + k_s ⊗ v_s, this thread's
-  // entries
-  auto advance = [&](float* st, int s) {
-    const float wk = sw[s * K + row], kk = sk[s * K + row];
+  // S <- diag(wt) S + kdᵀ·vf, the warp's tiles
+  auto advance = [&](float (&st)[TPW][4], const float* kd_, const float* vf,
+                     const float* wt) {
 #pragma unroll
-    for (int e = 0; e < CPT; ++e)
-      st[e] = fmaf(wk, st[e], kk * sv[s * V + j0 + e]);
-  };
-
-  // pass 1: the state before each chunk
-  float st[CPT];
+    for (int i = 0; i < TPW; ++i) {
+      int m0, n0;
+      if (!tile_at(i, m0, n0)) continue;
+      const float c0 = wt[m0 + g], c1 = wt[m0 + g + 8];
+      st[i][0] *= c0;
+      st[i][1] *= c0;
+      st[i][2] *= c1;
+      st[i][3] *= c1;
+      float e4[4] = {};
 #pragma unroll
-  for (int e = 0; e < CPT; ++e) st[e] = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    float* ck = ckpt + ((int64_t)bh * n_chunks + c) * CPT * kThreads + tid;
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) ck[e * kThreads] = st[e];
-    if (c == n_chunks - 1) break;
-    __syncthreads();
-    load(c, false);
-    __syncthreads();
-    for (int s = 0; s < L; ++s) advance(st, s);
-  }
-
-  // pass 2: chunks from the last.  A chunk's states are recomputed from
-  // its checkpoint twice: first to keep the state before each sub-chunk of
-  // SUB steps in shared memory (each thread its own entries), then, from
-  // the last sub-chunk, into registers, which the sweep reads back
-  float ds[CPT];
-#pragma unroll
-  for (int e = 0; e < CPT; ++e)
-    ds[e] = ds_last ? ds_last[(int64_t)bh * K * V + row * V + j0 + e] : 0.f;
-  float du_acc = 0.f;
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * L, n = min(L, S - t0);
-    __syncthreads();                    // the last chunk's readers are done
-    load(c, true);
-    __syncthreads();
-    const float* ck = ckpt + ((int64_t)bh * n_chunks + c) * CPT * kThreads +
-                      tid;
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) st[e] = ck[e * kThreads];
-    for (int q = 0; q < NSUB; ++q) {
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) sub[(q * CPT + e) * kThreads + tid] = st[e];
-      if (q + 1 < NSUB && (q + 1) * SUB < n) {
-#pragma unroll
-        for (int i = 0; i < SUB; ++i) advance(st, q * SUB + i);
+      for (int kk = 0; kk < L / 8; ++kk) {
+        const float* kd = kd_ + (kk * 8 + tq) * KP + m0 + g;
+        const float fa[4] = {kd[0], kd[8], kd[4 * KP], kd[4 * KP + 8]};
+        const float* vy = vf + (kk * 8 + tq) * VP + n0 + g;
+        const float fb[2] = {vy[0], vy[4 * VP]};
+        mma_3xtf32<false, EX>(st[i], e4, FragA(fa), FragB(fb));
       }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) st[i][q] += e4[q];
     }
-    for (int q = NSUB - 1; q >= 0; --q) {
-      if (q * SUB >= n) continue;
-      float sp[SUB][CPT];               // S_{t-1} of the sub-chunk's steps
+  };
+  float st[TPW][4];
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st[i][q] = 0.f;
+  issue1(0, 0);
+  for (int c = 0; c < n_chunks; c += 2) {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue1(c + 2, c / 2 + 1);
+    put_ckpt(c, st);
+    if (c == n_chunks - 1) break;
+    const bool second = c + 1 < n_chunks - 1;
+    const unsigned char* sg = smem + (c / 2 % 2) * C::P1_B;
+    // k ⊙ w[s+1:L] and w[0:L] of chunk c (threads 0..K-1) and c + 1 (K..)
+    if (tid < K || (second && tid < 2 * K)) {
+      const int j = tid / K, kk = tid % K;
+      const unsigned char* sj = sg + j * C::P1C_B;
+      const T* ks = reinterpret_cast<const T*>(sj);
+      const float* ws = reinterpret_cast<const float*>(sj + R_B);
+      float* kd = j ? RP : KD;
+      float m = 1.f;
+#pragma unroll
+      for (int s = L - 1; s >= 0; --s) {
+        kd[s * KP + kk] = to_f(ks[s * K + kk]) * m;
+        m *= ws[s * K + kk];
+      }
+      (j ? CC : WT)[kk] = m;
+    }
+    for (int e = tid; e < L * V; e += kThreads) {
+      VF[e / V * VP + e % V] =
+          to_f(reinterpret_cast<const T*>(sg + R_B + W_B)[e]);
+      if (second)
+        DOF[e / V * VP + e % V] = to_f(
+            reinterpret_cast<const T*>(sg + C::P1C_B + R_B + W_B)[e]);
+    }
+    __syncthreads();
+    advance(st, KD, VF, WT);
+    if (c + 1 < n_chunks) put_ckpt(c + 1, st);
+    if (second) advance(st, RP, DOF, CC);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                 // the checkpoints are in; the ring is free
+
+  // pass 2: chunks from the last; dS (the gradient of the state after the
+  // chunk) in DS.  Five barriers a chunk: (0) the rows and the state have
+  // landed and dS is in; (1) v, do, the columns of r, k, w, C; (2) Z, Y,
+  // P; (3) the outputs over k, A, the decayed r and k, w[0:L]; (4) dv and
+  // the new dS, which read the old dS.  The next chunk's rows are copied
+  // from (0), its state from (2)
+  for (int e = tid; e < K * V; e += kThreads)
+    DS[e / V * VP + e % V] = ds_last ? ds_last[(int64_t)bh * K * V + e] : 0.f;
+  float du_acc[C::KPT];
+#pragma unroll
+  for (int i = 0; i < C::KPT; ++i) du_acc[i] = 0.f;
+  issue(n_chunks - 1, 0);
+  issue_state(n_chunks - 1);
+  for (int i = 0; i < n_chunks; ++i) {
+    const int c = n_chunks - 1 - i, t0 = c * L, n = min(L, S - t0);
+    cp_async_wait<0>();
+    __syncthreads();                                          // (0)
+    issue(c - 1, i + 1);
+    const unsigned char* sg = stage(i);
+    const T* rs = reinterpret_cast<const T*>(sg);
+    const T* ks = reinterpret_cast<const T*>(sg + R_B);
+    const float* ws = reinterpret_cast<const float*>(sg + 2 * R_B);
+    const T* vs = reinterpret_cast<const T*>(sg + 2 * R_B + W_B);
+    const T* dos = reinterpret_cast<const T*>(sg + 2 * R_B + W_B + V_B);
+    // 1a. v and do as float32, r, k and w as float32 columns (rows past
+    //     the sequence r = k = v = do = 0, w = 1), and C = Σ_j dS ⊙ S_in,
+    //     the threads of a row k adjacent lanes
+    for (int e = tid; e < L * V; e += kThreads) {
+      const int t = e / V, j = e % V;
+      VF[t * VP + j] = t < n ? to_f(vs[e]) : 0.f;
+      DOF[t * VP + j] = t < n ? to_f(dos[e]) : 0.f;
+    }
+    for (int e = tid; e < L * K; e += kThreads) {
+      const int t = e / K, kk = e % K;
+      const bool in = t < n;
+      COL[kk * CS + t] = in ? to_f(rs[e]) : 0.f;
+      COL[(K + kk) * CS + t] = in ? to_f(ks[e]) : 0.f;
+      COL[(2 * K + kk) * CS + t] = in ? ws[e] : 1.f;
+    }
+    {
+      constexpr int PARTS = kThreads / K, CPT = V / PARTS;
+      const int kr = tid / PARTS, j0 = tid % PARTS * CPT;
+      float a = 0.f;
 #pragma unroll
       for (int e = 0; e < CPT; ++e)
-        sp[0][e] = sub[(q * CPT + e) * kThreads + tid];
+        a = fmaf(DS[kr * VP + j0 + e], SIN[kr * VP + j0 + e], a);
 #pragma unroll
-      for (int i = 1; i < SUB; ++i) {
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) sp[i][e] = sp[i - 1][e];
-        advance(sp[i], q * SUB + i - 1);
-      }
-#pragma unroll
-      for (int i = SUB - 1; i >= 0; --i) {
-        const int s = q * SUB + i;
-        if (s >= n) continue;
-        const float rk = sr[s * K + row], kk = sk[s * K + row];
-        const float wk = sw[s * K + row], uk = su[row];
-        const float* dos = sdo + s * V + j0;
-        const float* vs = sv + s * V + j0;
-        float pr = 0.f, pk = 0.f, pw = 0.f, pu = 0.f, cv[CPT];
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) {
-          const float kv = kk * vs[e], g = rk * dos[e];
-          const float gkv = fmaf(uk, g, ds[e]);
-          pr = fmaf(dos[e], fmaf(uk, kv, sp[i][e]), pr);
-          pk = fmaf(gkv, vs[e], pk);
-          pw = fmaf(ds[e], sp[i][e], pw);
-          pu = fmaf(g, kv, pu);
-          cv[e] = gkv * kk;
-          ds[e] = fmaf(wk, ds[e], g);
-        }
-#pragma unroll
-        for (int o = TPR / 2; o > 0; o >>= 1) {   // over the row's threads
-          pr += __shfl_xor_sync(0xffffffffu, pr, o);
-          pk += __shfl_xor_sync(0xffffffffu, pk, o);
-          pw += __shfl_xor_sync(0xffffffffu, pw, o);
-          pu += __shfl_xor_sync(0xffffffffu, pu, o);
-        }
-        if (cg == 0) {
-          odr[s * K + row] = pr;
-          odk[s * K + row] = pk;
-          odw[s * K + row] = pw;
-          du_acc += pu;
-        }
-        // cv over the warp's rows; the warp's partial of column j to
-        // red[i][warp][j]
-        float* rw = red + (i * NW + warp) * V + j0;
-        if constexpr (CPT >= RB) {
-          // reduce-scatter: each round halves what a lane keeps, so each
-          // of the RB lanes of a column group ends with CPT / RB sums
-          int off = 0;
-#pragma unroll
-          for (int m = TPR, h = CPT / 2; m < 32; m <<= 1, h >>= 1) {
-            const bool up = lane & m;
-#pragma unroll
-            for (int e = 0; e < h; ++e) {
-              const float give = up ? cv[e] : cv[e + h];
-              const float keep = up ? cv[e + h] : cv[e];
-              cv[e] = keep + __shfl_xor_sync(0xffffffffu, give, m);
-            }
-            if (up) off += h;
-          }
-#pragma unroll
-          for (int e = 0; e < CPT / RB; ++e) rw[off + e] = cv[e];
-        } else {
-#pragma unroll
-          for (int o = TPR; o < 32; o <<= 1)
-#pragma unroll
-            for (int e = 0; e < CPT; ++e)
-              cv[e] += __shfl_xor_sync(0xffffffffu, cv[e], o);
-          if (lane < TPR) {
-#pragma unroll
-            for (int e = 0; e < CPT; ++e) rw[e] = cv[e];
-          }
-        }
-      }
-      __syncthreads();                  // the sub-chunk's dv partials
-      const int m = min(SUB, n - q * SUB);
-      for (int x = tid; x < m * V; x += kThreads) {
-        const int i = x / V, j = x - i * V;
-        float a = 0.f;
-#pragma unroll
-        for (int w_ = 0; w_ < NW; ++w_) a += red[(i * NW + w_) * V + j];
-        dv[vb + (int64_t)(t0 + q * SUB) * V + x] = cvt_out(a, dv);
-      }
-      __syncthreads();                  // before red is written again
+      for (int o = PARTS / 2; o > 0; o >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (tid % PARTS == 0) CC[kr] = a;
     }
-    for (int x = tid; x < n * K; x += kThreads) {  // ordered by the last
-      const int64_t g = kb + (int64_t)t0 * K + x;  // barrier above
-      dr[g] = cvt_out(odr[x], dr);
-      dk[g] = cvt_out(odk[x], dk);
-      dw[g] = odw[x];
+    __syncthreads();                                          // (1)
+    // 1b. Z = do·S_inᵀ, Y = v·dSᵀ (L x K) and P = do·vᵀ (L x L) on the
+    //     tensor cores, a 16 x 8 tile at a time
+    {
+      constexpr int NZ = K / 8, NI = 2 * NZ + L / 8;
+      for (int it = warp; it < NI; it += kBwdWarps) {
+        const int which = it < NZ ? 0 : it < 2 * NZ ? 1 : 2;
+        const int n0 = (it - which * NZ) * 8;
+        const float* ar = which == 1 ? VF : DOF;
+        const float* br = which == 0 ? SIN : which == 1 ? DS : VF;
+        float hi4[4] = {}, lo4[4] = {};
+#pragma unroll
+        for (int j = 0; j < V; j += 8) {
+          const float fa[4] = {ar[g * VP + j + tq], ar[(g + 8) * VP + j + tq],
+                               ar[g * VP + j + tq + 4],
+                               ar[(g + 8) * VP + j + tq + 4]};
+          const float fb[2] = {br[(n0 + g) * VP + j + tq],
+                               br[(n0 + g) * VP + j + tq + 4]};
+          if (which == 2)
+            mma_3xtf32<EX, EX>(hi4, lo4, FragA(fa), FragB(fb));
+          else
+            mma_3xtf32<EX, false>(hi4, lo4, FragA(fa), FragB(fb));
+        }
+        float* o = which == 0 ? Z : which == 1 ? Y : P;
+        const int ld = which == 2 ? LP : KP;
+        st2(o + g * ld + n0 + 2 * tq, hi4[0] + lo4[0], hi4[1] + lo4[1]);
+        st2(o + (g + 8) * ld + n0 + 2 * tq, hi4[2] + lo4[2], hi4[3] + lo4[3]);
+      }
+    }
+    __syncthreads();                                          // (2)
+    issue_state(c - 1);
+    // 2. the pairs (s, t) of the chunk on the CUDA cores: warp w takes
+    //    steps w and L-1-w (the same work for each warp), its lanes the
+    //    columns k
+    {
+      T* drc = dr + kb + (int64_t)t0 * K;
+      T* dkc = dk + kb + (int64_t)t0 * K;
+      float* dwc = dw + kb + (int64_t)t0 * K;
+      bwd_pairs<C>(F, warp, lane, n, du_acc, drc, dkc, dwc);
+    }
+    __syncthreads();                                          // (3)
+    // 4. dv = [k ⊙ w[s+1:L] | Aᵀ]·[dS ; do] (L x V) and the new dS =
+    //    diag(w[0:L]) dS + (r ⊙ w[0:t])ᵀ·do (K x V), on the tensor cores
+    for (int it = warp; it < NT8; it += kBwdWarps) {
+      const int n0 = it * 8;
+      float hi4[4] = {}, lo4[4] = {};
+#pragma unroll
+      for (int j = 0; j < K; j += 8) {
+        const float fa[4] = {KD[g * KP + j + tq], KD[(g + 8) * KP + j + tq],
+                             KD[g * KP + j + tq + 4],
+                             KD[(g + 8) * KP + j + tq + 4]};
+        const float fb[2] = {DS[(j + tq) * VP + n0 + g],
+                             DS[(j + tq + 4) * VP + n0 + g]};
+        mma_3xtf32<false, false>(hi4, lo4, FragA(fa), FragB(fb));
+      }
+#pragma unroll
+      for (int j = 0; j < L; j += 8) {
+        const float fa[4] = {AT[g * LP + j + tq], AT[(g + 8) * LP + j + tq],
+                             AT[g * LP + j + tq + 4],
+                             AT[(g + 8) * LP + j + tq + 4]};
+        const float fb[2] = {DOF[(j + tq) * VP + n0 + g],
+                             DOF[(j + tq + 4) * VP + n0 + g]};
+        mma_3xtf32<false, EX>(hi4, lo4, FragA(fa), FragB(fb));
+      }
+      T* o = dv + vb + (int64_t)(t0 + g) * V + n0 + 2 * tq;
+      if (g < n) st2(o, hi4[0] + lo4[0], hi4[1] + lo4[1]);
+      if (g + 8 < n) st2(o + 8 * V, hi4[2] + lo4[2], hi4[3] + lo4[3]);
+    }
+    float dsn[TPW][4];
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      int m0, n0;
+      if (!tile_at(i, m0, n0)) continue;
+      const float c0 = WT[m0 + g], c1 = WT[m0 + g + 8];
+      const float* d0 = DS + (m0 + g) * VP + n0 + 2 * tq;
+      dsn[i][0] = c0 * d0[0];
+      dsn[i][1] = c0 * d0[1];
+      dsn[i][2] = c1 * d0[8 * VP];
+      dsn[i][3] = c1 * d0[8 * VP + 1];
+      float e4[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < L / 8; ++kk) {
+        const float* rp = RP + (kk * 8 + tq) * KP + m0 + g;
+        const float fa[4] = {rp[0], rp[8], rp[4 * KP], rp[4 * KP + 8]};
+        const float* dy = DOF + (kk * 8 + tq) * VP + n0 + g;
+        const float fb[2] = {dy[0], dy[4 * VP]};
+        mma_3xtf32<false, EX>(dsn[i], e4, FragA(fa), FragB(fb));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dsn[i][q] += e4[q];
+    }
+    __syncthreads();                                          // (4)
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      int m0, n0;
+      if (!tile_at(i, m0, n0)) continue;
+      float* d0 = DS + (m0 + g) * VP + n0 + 2 * tq;
+      st2(d0, dsn[i][0], dsn[i][1]);
+      st2(d0 + 8 * VP, dsn[i][2], dsn[i][3]);
     }
   }
-  if (cg == 0) du_part[(int64_t)bh * K + row] = du_acc;
+  // du of this (batch, head): each warp's sum over the chunks, then the
+  // warps in order
+#pragma unroll
+  for (int i = 0; i < C::KPT; ++i)
+    if (lane + 32 * i < K) DU[warp * K + lane + 32 * i] = du_acc[i];
+  __syncthreads();
+  for (int j = tid; j < K; j += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w_ = 0; w_ < kBwdWarps; ++w_) a += DU[w_ * K + j];
+    du_part[(int64_t)bh * K + j] = a;
+  }
 }
 
 // du[h, k] = Σ_b du_part[b, h, k], b in order
@@ -936,7 +1293,7 @@ struct BwdArgs {
 template <typename T, int K, int V>
 cudaError_t launch_bwd(const BwdArgs& a) {
   using C = BwdCfg<T, K, V>;
-  auto kernel = wkv_bwd_kernel<T, K, V>;
+  auto kernel = wkv_bwd_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
@@ -1001,6 +1358,10 @@ int wkv_bwd(int dtype, const void* r, const void* k, const void* v,
             int V, int device, void* stream) {
   if (const cudaError_t err = cudaSetDevice(device)) return (int)err;
   if (B < 1 || H < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const void* wide[] = {r, k, v, w, dout, ckpt};    // moved 16 B at a time
+  for (const void* p : wide)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
   const BwdArgs a{r,  k,  v,  w,  u,       dout, ds_last, dr, dk, dv,
                   dw, du, du_part, ckpt, B, H,  S,      (cudaStream_t)stream};
   if (dtype == 0) return (int)dispatch_bwd<float>(K, V, a);
@@ -1008,11 +1369,13 @@ int wkv_bwd(int dtype, const void* r, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// the dynamic shared memory a block of the (K, V) instance takes, or -1
-int wkv_smem_bytes(int dtype, int K, int V) {
+// the dynamic shared memory a block of the (K, V) instance of the forward
+// (backward = 0) or the backward takes, or -1
+int wkv_smem_bytes(int dtype, int K, int V, int backward) {
   int bytes = -1;
   dispatch_dtype(dtype, K, V, [&](auto* cfg) {
-    bytes = std::remove_pointer_t<decltype(cfg)>::SMEM;
+    using C = std::remove_pointer_t<decltype(cfg)>;
+    bytes = backward ? BwdCfg<typename C::E, C::K, C::V>::SMEM : C::SMEM;
     return cudaSuccess;
   });
   return bytes;

@@ -42,7 +42,7 @@ def _library() -> ctypes.CDLL:
     lib.wkv_fwd.restype = _I
     lib.wkv_bwd.argtypes = [_I] + [_P] * 14 + [_I] * 6 + [_P]
     lib.wkv_bwd.restype = _I
-    lib.wkv_smem_bytes.argtypes = [_I] * 3
+    lib.wkv_smem_bytes.argtypes = [_I] * 4
     lib.wkv_smem_bytes.restype = _I
     lib.wkv_error_string.argtypes = [_I]
     lib.wkv_error_string.restype = ctypes.c_char_p
@@ -114,7 +114,9 @@ def wkv_bwd(r, k, v, w, u, dout, ds_last=None) -> tuple:
     """The gradients ``(dr, dk, dv, dw, du)`` of :func:`wkv` from its
     inputs and those of its outputs (``ds_last`` may be None): dw float32,
     the others in r's type.  The kernel for CUDA tensors, counted in
-    ``wkv.bwd_launches``; the plain :func:`wkv_bwd_ref` for CPU tensors."""
+    ``wkv.bwd_launches``; the plain :func:`wkv_bwd_ref` for CPU tensors.
+    An input whose storage is not 16-byte aligned is copied first, as for
+    the forward."""
     if r.device.type == "cpu":
         return wkv_bwd_ref(r, k, v, w, u, dout, ds_last)
     B, H, S, K = r.shape
@@ -125,6 +127,8 @@ def wkv_bwd(r, k, v, w, u, dout, ds_last=None) -> tuple:
                          f"tensor, got {tuple(dout.shape)} {dout.dtype}")
     if ds_last is not None:
         ds_last = ds_last.float().contiguous()
+    r, k, v, w, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (r, k, v, w, dout))
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk = torch.empty_like(r), torch.empty_like(k)
     dv, du = torch.empty_like(v), torch.empty_like(u)
@@ -171,6 +175,8 @@ def _launch(r, k, v, w, u):
     return out, s_last
 
 
-def smem_bytes(dtype: torch.dtype, K: int, V: int) -> int:
-    """Dynamic shared memory a block of the kernel takes (builds it)."""
-    return _library().wkv_smem_bytes(_DTYPES[dtype], K, V)
+def smem_bytes(dtype: torch.dtype, K: int, V: int,
+               backward: bool = False) -> int:
+    """Dynamic shared memory a block of the forward (or backward) kernel
+    takes (builds it)."""
+    return _library().wkv_smem_bytes(_DTYPES[dtype], K, V, int(backward))

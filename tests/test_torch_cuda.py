@@ -195,15 +195,25 @@ def test_flash_attention_bf16_route_matches_plain_on_card(
 @pytest.mark.parametrize("shape_q,window", [
     ((1, 3000, 1, 10, 256), 2048),     # MQA at 256, a window that masks
     ((4, 1024, 1, 10, 256), 2048),     # the recurrentgemma path
+    ((1, 200, 2, 1, 256), 0),          # G = 1
+    ((2, 100, 1, 3, 256), 48),         # ragged tail, MQA, a window
+    ((1, 300, 8, 2, 256), 100),        # GQA (gemma3's heads), ragged
+    ((1, 130, 2, 2, 192), 0),          # D = 192: zero columns to 256
 ])
 def test_flash_attention_bf16_head_dim_256_matches_plain_on_card(
         cuda_device, shape_q, window):
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_fwd_ref)
+    """Forward and backward at head width 256 (the backward's two
+    consumer warpgroups exchanging P and dS through shared memory) against
+    the plain versions; two backward launches give bit-equal gradients."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
     B, S, KV, G, D = shape_q
-    q, k, v, _ = _attention_inputs(cuda_device, shape_q, (B, S, KV, D),
-                                   "bfloat16", seed=4)
+    q, k, v, do = _attention_inputs(cuda_device, shape_q, (B, S, KV, D),
+                                    "bfloat16", seed=4)
     out, lse = flash_attention_fwd(q, k, v, window=window)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    again = flash_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
     out_ref, lse_ref = flash_attention_fwd_ref(q, k, v, window=window)
     np.testing.assert_allclose(out.float().cpu().numpy(),
@@ -211,6 +221,13 @@ def test_flash_attention_bf16_head_dim_256_matches_plain_on_card(
                                **_fa_tol("bfloat16", False))
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+    grads_ref = flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                        window=window)
+    for g, a, r in zip(grads, again, grads_ref):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a)
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(),
+                                   **_fa_tol("bfloat16", True))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -337,6 +354,10 @@ def test_wkv_kernel_matches_plain_on_card(cuda_device, shape, w, dtype):
 @pytest.mark.parametrize("shape,w", [
     ((1, 2, 64, 16, 16), None), ((2, 3, 1000, 64, 64), "path"),
     ((1, 2, 77, 16, 64), None), ((1, 2, 100, 64, 32), "zeros"),
+    ((1, 1, 16, 64, 64), None),                  # one whole chunk
+    ((1, 2, 5, 64, 64), "path"),                 # shorter than a chunk
+    ((1, 2, 100, 32, 16), None),                 # K > V
+    ((1, 2, 1024, 64, 64), 0.9996645936333934),  # w -> 1: exp(-e^-8)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv_backward_kernel_matches_plain_on_card(cuda_device, shape, w,
@@ -344,8 +365,9 @@ def test_wkv_backward_kernel_matches_plain_on_card(cuda_device, shape, w,
     """The WKV backward kernel through autograd (one backward launch)
     against the written-out plain backward, a gradient of S_last too:
     float32 within rtol 2e-4, atol 2e-4·max(1, max|grad|) (sums over K and
-    V in other orders, carried back by dS); bf16 gradients within 1e-2."""
-    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_bwd_ref
+    V in other orders, carried back by dS); bf16 gradients within 1e-2.
+    A second launch on the same inputs gives bit-equal gradients."""
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_bwd, wkv_bwd_ref
     ins = _wkv_inputs(cuda_device, shape, dtype, w)
     leaves = [x.clone().requires_grad_(True) for x in ins]
     out, s_last = wkv(*leaves)
@@ -358,6 +380,9 @@ def test_wkv_backward_kernel_matches_plain_on_card(cuda_device, shape, w,
     torch.autograd.backward((out, s_last), (dout, ds))
     torch.cuda.synchronize()
     assert wkv.bwd_launches == before + 1
+    again = wkv_bwd(*ins, dout, ds)
+    for x, a in zip(leaves, again):
+        assert torch.equal(x.grad, a)
     for x, want in zip(leaves, wkv_bwd_ref(*ins, dout, ds)):
         assert x.grad.dtype == x.dtype == want.dtype
         scale = max(1.0, float(want.float().abs().max()))

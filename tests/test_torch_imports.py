@@ -73,5 +73,6 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.deepseek_67b",
                 "repro_torch.configs.gemma3_12b",
                 "repro_torch.configs.internvl2_26b",
-                "repro_torch.configs.hubert_xlarge"):
+                "repro_torch.configs.hubert_xlarge",
+                "repro_torch.kernels.backward_ab"):
         assert mod in got["imported"]
