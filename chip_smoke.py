@@ -148,7 +148,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
               stacked group's final float32 state bit-equal on the card
               and the CPU, moments within rtol 1e-12, chunks of 500 and
               2,000 bit-equal; ms a slot and lane-slots/s, card and CPU;
-16. times  -- each kernel, its plain version and one library call, timed
+16. grid   -- one cell of each shape of the (arch x shape) grid through
+              ``repro_torch.launch.steps`` at the shape's full sequence
+              length (``GRID``): train_4k (stablelm-1.6b, 24 layers, 24 of
+              256 sequences of 4,096 tokens; 3 steps with the EF int8
+              quantizer as ``grad_transform``, its residuals carried, one
+              EF top-k step, one plain step), prefill_32k
+              (recurrentgemma-2b, 8 of 32 prompts of 32,768 tokens),
+              decode_32k (recurrentgemma-2b, 128 sequences, caches of its
+              size drawn from the seed, from position 32,767) and
+              long_500k (rwkv6-1.6b, a prefill of 524,288 tokens, then a
+              serve step); each line with its median step time, peak
+              memory, ``mfu`` (the cut shape's model FLOPs over the time
+              over the H100's bf16 peak) and the roofline's bottleneck
+              (``repro_torch.analysis.roofline``, ``HW_H100``); finite
+              losses and logits; the quantizer's output within one step of
+              every block of its input, its residual exact, its codes on
+              the card equal to the host's numpy route on a whole leaf and
+              windows of the largest; launches as each cell implies; each
+              kernel against its plain version at its cell's shape, timed
+              there;
+17. times  -- each kernel, its plain version and one library call, timed
               with CUDA events, beside the least time the card could take
               (the attention forward also at each moe and zoo shape; the
               three backward kernels at the family training shapes), the
@@ -174,10 +194,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.roofline import HW_H100  # noqa: E402
+
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]
+F32_FLOP_PER_S = HW_H100["peak_flops_f32"]
+BF16_FLOP_PER_S = HW_H100["peak_flops_bf16"]
 
 SCENARIO = "bursty-stragglers"
 SCHEMES = ("two-stage", "cyclic", "fractional", "uncoded")
@@ -562,13 +584,24 @@ def kernel_phase() -> dict:
     return errs
 
 
-def _fa_inputs(seed, shape_q, dtype):
+def _card_draws(seed):
+    """A seeded generator on the card: inputs of 10^8-10^9 entries (the
+    grid's shapes) take seconds, not minutes, to draw."""
+    import torch
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _fa_inputs(seed, shape_q, dtype, card=False):
+    """q, k, v, dO normal in ``dtype`` on the card, drawn with numpy (or
+    on the card, ``card``)."""
     import numpy as np
     import torch
     B, S, KV, G, D = shape_q
-    rng = np.random.default_rng(seed)
+    rng = _card_draws(seed) if card else np.random.default_rng(seed)
 
     def draw(shape):
+        if card:
+            return torch.randn(shape, generator=rng, device="cuda").to(dtype)
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to("cuda", dtype)
     return (draw(shape_q), draw((B, S, KV, D)), draw((B, S, KV, D)),
@@ -584,17 +617,19 @@ FA_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
           "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
 
 
-def fa_case(tag, shape_q, dtype, causal, window, chunk=64) -> tuple:
+def fa_case(tag, shape_q, dtype, causal, window, chunk=64,
+            card=False) -> tuple:
     """Flash attention forward and backward at ``shape_q`` against the
     plain version, each within ``FA_TOL``, and the backward bit-equal over
-    two launches; returns the largest errors (forward, backward)."""
+    two launches; returns the largest errors (forward, backward).
+    ``card``: the inputs drawn on the card."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     from repro_torch.kernels.flash_attention.ops import kernel_route
-    q, k, v, do = _fa_inputs(0, shape_q, dtype)
+    q, k, v, do = _fa_inputs(0, shape_q, dtype, card)
     kw = dict(causal=causal, window=window, q_chunk=chunk, kv_chunk=chunk)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -653,15 +688,26 @@ def flash_kernel_phase() -> dict:
     return path_errs
 
 
-def _wkv_inputs(seed, shape, dtype, w):
+def _wkv_inputs(seed, shape, dtype, w, card=False):
     """r, k, v, u normal in ``dtype`` and w float32 on the card, drawn with
     numpy; ``w`` is a constant or ``"uniform"`` (the reference's kernel
     tests: U(0.3, 0.99)) or ``"path"`` (exp(-exp(U(-8, 2))), the whole
     range ``_rwkv_decay`` gives) or ``"zeros"`` (U(0.3, 0.99) with a tenth
-    of the entries 0 and a tenth 1e-30)."""
+    of the entries 0 and a tenth 1e-30).  ``card``: "path" drawn on the
+    card."""
     import numpy as np
     import torch
     B, H, S, K, V = shape
+    if card:
+        assert w == "path"
+        g = _card_draws(seed)
+
+        def normal(*sh):
+            return torch.randn(sh, generator=g, device="cuda").to(dtype)
+        r, k, v = normal(B, H, S, K), normal(B, H, S, K), normal(B, H, S, V)
+        wv = torch.rand((B, H, S, K), generator=g, device="cuda")
+        wv = torch.exp(-torch.exp(wv.mul_(10.0).sub_(8.0)))
+        return r, k, v, wv, normal(H, K)
     rng = np.random.default_rng(seed)
 
     def draw(*sh):
@@ -748,11 +794,18 @@ def wkv_kernel_phase() -> float:
     return path_err
 
 
-def _scan_inputs(seed, shape, dtype, a_lo=0.5, a_hi=0.999):
+def _scan_inputs(seed, shape, dtype, a_lo=0.5, a_hi=0.999, card=False):
     """a ~ U(a_lo, a_hi) and b ~ N(0, 0.1) in ``dtype`` on the card, drawn
-    with numpy (the reference's kernel tests: U(0.5, 0.999))."""
+    with numpy (the reference's kernel tests: U(0.5, 0.999)), or on the
+    card (``card``)."""
     import numpy as np
     import torch
+    if card:
+        g = _card_draws(seed)
+        a = torch.rand(shape, generator=g, device="cuda")
+        a = a.mul_(a_hi - a_lo).add_(a_lo)
+        b = torch.randn(shape, generator=g, device="cuda").mul_(0.1)
+        return a.to(dtype), b.to(dtype)
     rng = np.random.default_rng(seed)
     a = rng.uniform(a_lo, a_hi, shape).astype(np.float32)
     b = (rng.standard_normal(shape) * 0.1).astype(np.float32)
@@ -3478,7 +3531,626 @@ def soak_phase(smi: str) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# 16. times
+# 16. grid: one cell of each shape through the step builders
+# --------------------------------------------------------------------- #
+#: (arch, shape, batch): one cell of each shape of the (arch x shape)
+#: grid, at the shape's full sequence length, the config at full width
+#: and depth; each batch cut to what fits on the card.  train_4k: 256 ->
+#: 24 sequences (the functional step holds params, both moments and the
+#: residuals, 26.3 GB, and a backward takes 2.65 + 1.31 GB a sequence:
+#: ~60 GB at 24; 31 ran out of memory at the second step);
+#: prefill_32k: 32 -> 8 prompts (17.7 GB + 6.44 a prompt: ~63 GB)
+GRID = (("stablelm-1.6b", "train_4k", 24),
+        ("recurrentgemma-2b", "prefill_32k", 8),
+        ("recurrentgemma-2b", "decode_32k", 128),
+        ("rwkv6-1.6b", "long_500k", 1))
+#: train_4k: EF int8 steps (the first a warm-up), then one EF top-k step
+#: at this fraction and one plain step
+GRID_EF_STEPS, GRID_TOPK = 3, 0.05
+#: prefill_32k: timed prefills after a warm-up; decode_32k: timed steps
+#: after a warm-up (from position 32,767)
+GRID_PREFILLS, GRID_DECODE_STEPS = 2, 4
+#: long_500k: the warm-up prefill's length before the whole context
+GRID_LONG_WARMUP = 32768
+#: the WKV check at long_500k: the plain recurrence over the first and
+#: the last steps of the context (see ``grid_wkv_check``)
+GRID_WKV_HEAD, GRID_WKV_TAIL = 4096, 49152
+#: the quantizer's codes against the host's: rows of 256 entries in each
+#: window of the largest leaf
+GRID_CODE_ROWS = 4096
+
+
+def _event_ms(fn):
+    """``(fn(), ms)``: the call timed by CUDA events around it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def grid_terms(cfg, shape, ms: float) -> dict:
+    """The cut shape's model FLOPs over the step's time against the H100's
+    bf16 peak (``mfu``), and the roofline's terms and bottleneck for the
+    cut shape on one card (``model_flops`` as the compute, the analytic
+    HBM bytes, no collective)."""
+    from repro_torch.analysis.roofline import (analytic_hbm_bytes,
+                                               model_flops, roofline_terms)
+    flops = model_flops(cfg, shape)
+    terms = roofline_terms(flops, analytic_hbm_bytes(cfg, shape, {}), 0.0,
+                           n_devices=1, model_total_flops=flops, hw=HW_H100)
+    return {"ms": ms, "model_flops": flops,
+            "mfu": flops / (ms / 1e3) / HW_H100["peak_flops_bf16"],
+            "compute_ms": terms.compute_s * 1e3,
+            "memory_ms": terms.memory_s * 1e3,
+            "bottleneck": terms.bottleneck}
+
+
+def grid_line(cell, cfg, shape, what, ms_list, peak, smi) -> dict:
+    import numpy as np
+    ms = float(np.median(ms_list))
+    t = grid_terms(cfg, shape, ms)
+    log(f"[grid] {cell} {cfg.name} ({cfg.n_layers} layers) at "
+        f"{shape.global_batch} x {shape.seq_len} ({shape.kind}): {what} "
+        f"median {ms:.1f} ms (all {[round(x, 1) for x in ms_list]}); peak "
+        f"{peak / 1e9:.2f} GB; mfu {t['mfu']:.4f} ({t['model_flops']:.4g} "
+        f"model FLOPs); roofline compute {t['compute_ms']:.2f} ms, memory "
+        f"{t['memory_ms']:.2f} ms -> bottleneck {t['bottleneck']} ({smi})")
+    t.update(cell=cell, arch=cfg.name, what=what, peak=peak,
+             batch=shape.global_batch, seq=shape.seq_len)
+    return t
+
+
+def _host_codes(blocks, scale, key, row0: int):
+    """The int8 codes of rows ``row0...`` of a leaf's (rows, 256) blocks by
+    the host's route: numpy threefry draws (``threefry.threefry2x32`` at
+    the rows' flat counters), numpy float32 arithmetic."""
+    import numpy as np
+
+    from repro_torch.sim import threefry
+    i = np.arange(row0 * 256, (row0 + blocks.shape[0]) * 256,
+                  dtype=np.uint64)
+    y0, y1 = threefry.threefry2x32(
+        key, (i >> np.uint64(32)).astype(np.uint32),
+        (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    noise = threefry.bits_to_unit_float32(y0 ^ y1).reshape(blocks.shape)
+    y = blocks / scale
+    return np.clip(np.floor(y + noise), -127, 127).astype(np.int8)
+
+
+class _CheckedEF:
+    """The train_4k cell's ``grad_transform``: the EF int8 compressor
+    (``ErrorFeedback``), its time on the card by CUDA events, and its
+    checks on each call: every leaf's output within one quantization
+    step of its block of the gradient it was given (the batch's gradient
+    plus the carried residual; on the first call the batch's gradient
+    alone), the residual exactly their difference; on the first call the
+    codes on the card of a whole leaf and of windows of the largest leaf
+    equal to the host's route, and their dequantized values what the step
+    sent."""
+
+    def __init__(self, params, key):
+        from repro_torch.compress import ErrorFeedback, make_ef_quantizer
+        self.ef = ErrorFeedback(make_ef_quantizer(), params, key)
+        self.ms, self.worst, self.code_rows = [], 0.0, 0
+
+    def __call__(self, grads):
+        errors, call = self.ef.errors, self.ef.calls
+        out, ms = _event_ms(lambda: self.ef(grads))
+        self.ms.append(ms)
+        self.check(grads, errors, out, self.ef.errors, call)
+        return out
+
+    def check(self, grads, errors, out, new, call):
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.optim.optimizers import tree_leaves
+        leaves = [tree_leaves(t) for t in (grads, errors, out, new)]
+        for i, (g, e, o, e_new) in enumerate(zip(*leaves)):
+            c = g.float() + e
+            if call == 0 and not torch.equal(c, g):
+                raise AssertionError(f"[grid] leaf {i}: the first residual "
+                                     f"is not zero")
+            if not torch.equal(e_new, c - o.float()):
+                raise AssertionError(f"[grid] EF int8 call {call} leaf {i}: "
+                                     f"the residual is not the gradient "
+                                     f"minus what was sent")
+            pad = (-c.numel()) % 256
+            blocks = F.pad(c.reshape(-1), (0, pad)).view(-1, 256)
+            step = torch.clamp_min(blocks.abs().amax(1, keepdim=True) /
+                                   127.0, 1e-12)
+            dev = F.pad((o.float() - c).reshape(-1), (0, pad)).view(-1, 256)
+            ratio = float((dev.abs() / step).max())
+            # one step, and the float32 roundings of y = x/s, y + u and
+            # q·s, each under 2^-17 of a step at |y| <= 128
+            if not ratio <= 1.0 + 2.0 ** -15:
+                raise AssertionError(f"[grid] EF int8 call {call} leaf {i}: "
+                                     f"{ratio:.6f} quantization steps from "
+                                     f"its gradient")
+            self.worst = max(self.worst, ratio)
+            del c, blocks, step, dev
+        if call == 0:
+            self.check_codes(leaves[0], leaves[2])
+
+    def check_codes(self, grads, out):
+        import numpy as np
+        import torch
+
+        from repro_torch.compress import dequantize_int8, quantize_int8
+        from repro_torch.compress.quantize import DRAW_SLICE
+        from repro_torch.sim import threefry
+        keys = threefry.split(threefry.fold_in(self.ef.key, 0), len(grads))
+        sizes = [g.numel() for g in grads]
+        # the smallest leaf of at least 2^14 entries, whole (the host's
+        # numpy route takes ~0.2 s a million); windows of the largest
+        whole = min(range(len(grads)), key=lambda i: (sizes[i] < 2 ** 14,
+                                                      sizes[i]))
+        big = max(range(len(grads)), key=lambda i: sizes[i])
+        for i in (whole, big):
+            g = grads[i]
+            q, s = quantize_int8(g, keys[i])
+            if not torch.equal(dequantize_int8(q, s, g.shape, g.numel()),
+                               out[i]):
+                raise AssertionError(f"[grid] leaf {i}: the codes do not "
+                                     f"give what the step sent")
+            n_rows = q.shape[0]
+            mid = DRAW_SLICE // 256          # a slice of draws ends here
+            starts = [0] if i == whole else sorted(
+                {0, max(0, mid - GRID_CODE_ROWS // 2),
+                 n_rows - GRID_CODE_ROWS})
+            rows = n_rows if i == whole else GRID_CODE_ROWS
+            flat = torch.nn.functional.pad(
+                g.reshape(-1), (0, (-g.numel()) % 256)).view(-1, 256)
+            for r0 in starts:
+                host = _host_codes(flat[r0:r0 + rows].cpu().numpy(),
+                                   s[r0:r0 + rows].cpu().numpy(), keys[i],
+                                   r0)
+                if not np.array_equal(q[r0:r0 + rows].cpu().numpy(), host):
+                    raise AssertionError(f"[grid] leaf {i} rows {r0}+"
+                                         f"{rows}: card codes differ from "
+                                         f"the host route's")
+                self.code_rows += rows
+            log(f"[grid] EF int8 codes on the card equal the host route's: "
+                f"leaf {i} ({tuple(g.shape)}, {g.numel()} entries) "
+                + ("whole" if i == whole else
+                   f"rows {starts} x {rows} of {n_rows}"))
+
+
+def _lm_batch(vocab, B, S, gen, device):
+    import torch
+    tokens = torch.randint(0, vocab, (B, S), generator=gen, device=device)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+            "weights": torch.ones((B, S), device=device)}
+
+
+def grid_train(cfg, shape, smi, device="cuda") -> dict:
+    """train_4k: ``make_train_step`` with the EF int8 quantizer carried by
+    ``ErrorFeedback`` (``GRID_EF_STEPS`` steps), one EF top-k step, one
+    plain step; finite losses, the quantizer's checks, launches."""
+    import math
+
+    import torch
+
+    from repro_torch.compress import ErrorFeedback, make_ef_topk
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sim import threefry
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, device=device)
+    B, S = shape.global_batch, shape.seq_len
+    out, losses, peaks = {}, [], []
+
+    def run(tag, hook, n):
+        nonlocal params, opt_state
+        step, _ = make_train_step(cfg, 1, grad_transform=hook)
+        ms = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            batch = _lm_batch(cfg.vocab, B, S, gen, device)
+            (params, opt_state, aux), t = _event_ms(
+                lambda: step(params, opt_state, batch))
+            ms.append(t)
+            losses.append(float(aux["loss"]))
+            del batch, aux
+        peaks.append(torch.cuda.max_memory_allocated())
+        log(f"[grid] train_4k {tag}: losses {losses[-n:]}, step ms "
+            f"{[round(x, 1) for x in ms]}, peak {peaks[-1] / 1e9:.2f} GB")
+        return ms
+
+    _, opt = make_train_step(cfg, 1)
+    opt_state = opt.init(params)
+    reset_counts()
+    ef = _CheckedEF(params, threefry.prng_key(0))
+    ef_ms = run("EF int8", ef, GRID_EF_STEPS)
+    ef.ef.errors = None
+    topk = ErrorFeedback(make_ef_topk(GRID_TOPK), params)
+    topk_ms = run(f"EF top-k {GRID_TOPK}", topk, 1)
+    del topk
+    plain_ms = run("plain", None, 1)
+    launches = read_counts()
+    n, L = GRID_EF_STEPS + 2, cfg.n_layers
+    want = no_launches(flash_attention_fwd=2 * L * n,
+                       flash_attention_bwd=L * n)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[grid] train_4k losses {losses}")
+    if launches != want:
+        raise AssertionError(f"[grid] train_4k launches {launches}, the "
+                             f"path implies {want}")
+    log(f"[grid] train_4k: launches {launches} as the path implies "
+        f"(attention forward twice a layer and step under remat, backward "
+        f"once); EF int8 within {ef.worst:.6f} of one quantization step "
+        f"of every block, residuals exact, {ef.code_rows} rows of codes "
+        f"equal to the host route's; quantizer hook ms "
+        f"{[round(x, 1) for x in ef.ms]}")
+    peak = max(peaks)
+    out["ef"] = grid_line("train_4k", cfg, shape, "EF int8 step (after "
+                          "the first)", ef_ms[1:], peak, smi)
+    out["topk"] = grid_line("train_4k", cfg, shape, "EF top-k step",
+                            topk_ms, peak, smi)
+    out["plain"] = grid_line("train_4k", cfg, shape, "plain step",
+                             plain_ms, peak, smi)
+    out.update(launches=launches, quant_ms=ef.ms, losses=losses,
+               peak=peak)
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_prefill(cfg, shape, smi, device="cuda") -> dict:
+    """prefill_32k: ``make_prefill_step`` (a warm-up, then
+    ``GRID_PREFILLS`` timed); finite logits of the right shape; the
+    RG-LRU kernel once a rec layer and the windowed attention forward once
+    a local layer, each prefill."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    params = rg_params(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    step = make_prefill_step(cfg, 1)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(GRID_PREFILLS + 1):
+        (logits, caches), t = _event_ms(lambda: step(params,
+                                                     {"tokens": tokens}))
+        if i:
+            ms.append(t)
+        if tuple(logits.shape) != (B, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[grid] prefill_32k logits "
+                                 f"{tuple(logits.shape)} not finite")
+        del logits, caches
+    peak = torch.cuda.max_memory_allocated()
+    launches, windowed = read_counts(), windowed_launches()
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    n = GRID_PREFILLS + 1
+    want = no_launches(rglru_scan=kinds.count("rec") * n,
+                       flash_attention_fwd=kinds.count("local") * n)
+    if launches != want or windowed != want["flash_attention_fwd"]:
+        raise AssertionError(f"[grid] prefill_32k launches {launches} "
+                             f"(windowed {windowed}), the path implies "
+                             f"{want}, all windowed")
+    log(f"[grid] prefill_32k: launches {launches} as the path implies "
+        f"(all {windowed} attention launches windowed)")
+    out = grid_line("prefill_32k", cfg, shape, "prefill", ms, peak, smi)
+    out["launches"] = launches
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _draw_caches(caches, gen):
+    """Every cache leaf drawn from ``gen``: keys, values and conv rows
+    N(0, 1), recurrent states N(0, 0.1)."""
+    import torch
+
+    from repro_torch.optim.optimizers import tree_leaves
+    for t in tree_leaves(caches):
+        t.normal_(0.0, 1.0 if t.dtype != torch.float32 else 0.1,
+                  generator=gen)
+    return caches
+
+
+def grid_decode(cfg, shape, smi, device="cuda") -> dict:
+    """decode_32k: ``make_serve_step`` over caches of the shape's size
+    drawn from the seed, from position 32,767 (a warm-up step, then
+    ``GRID_DECODE_STEPS`` timed); finite logits; no kernel launched (the
+    decode step has none)."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.optim.optimizers import tree_leaves
+    params = rg_params(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    B, S = shape.global_batch, shape.seq_len
+    caches = _draw_caches(init_cache(cfg, B, S, device=device), gen)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                           device=device)
+    step = make_serve_step(cfg, 1)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(GRID_DECODE_STEPS + 1):
+        (logits, caches), t = _event_ms(lambda: step(params, tokens, caches,
+                                                     S - 1 + i))
+        if i:
+            ms.append(t)
+        if tuple(logits.shape) != (B, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("[grid] decode_32k logits not finite")
+        tokens = logits.argmax(-1, keepdim=True)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    if launches != no_launches():
+        raise AssertionError(f"[grid] decode_32k launches {launches}, the "
+                             f"decode step has no kernel")
+    log(f"[grid] decode_32k: caches {cache_bytes / 1e9:.3f} GB drawn from "
+        f"the seed; no kernel launched, as the path implies")
+    out = grid_line("decode_32k", cfg, shape, "decode step", ms, peak, smi)
+    out.update(launches=launches, cache_bytes=cache_bytes)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_long(cfg, shape, smi, device="cuda") -> dict:
+    """long_500k: ``make_prefill_step`` over the whole context (after a
+    ``GRID_LONG_WARMUP``-token warm-up), then ``make_serve_step`` from its
+    caches (a warm-up step, then one timed); finite logits; the WKV kernel
+    once a layer and prefill."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    params = serve_params(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    prefill, serve = make_prefill_step(cfg, 1), make_serve_step(cfg, 1)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, t_warm = _event_ms(lambda: prefill(
+        params, {"tokens": tokens[:, :GRID_LONG_WARMUP]}))
+    (logits, caches), t_pre = _event_ms(lambda: prefill(
+        params, {"tokens": tokens}))
+    pre_peak = torch.cuda.max_memory_allocated()
+    ms = []
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(2):
+        (logits, caches), t = _event_ms(lambda: serve(params, tok, caches,
+                                                      S + i))
+        ms.append(t)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("[grid] long_500k logits not finite")
+        tok = logits.argmax(-1, keepdim=True)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    want = no_launches(rwkv6_wkv=2 * kinds.count("rwkv"))
+    if launches != want:
+        raise AssertionError(f"[grid] long_500k launches {launches}, the "
+                             f"path implies {want}")
+    log(f"[grid] long_500k: launches {launches} as the path implies (WKV "
+        f"once a layer and prefill; the decode step has no kernel); "
+        f"warm-up prefill of {GRID_LONG_WARMUP} tokens {t_warm:.1f} ms")
+    out = {"prefill": grid_line(
+        "long_500k", cfg, dc.replace(shape, kind="prefill"), "prefill of "
+        "the whole context", [t_pre], pre_peak, smi),
+        "decode": grid_line("long_500k", cfg, shape, "serve step after it",
+                            ms[1:], peak, smi),
+        "launches": launches}
+    del params, caches, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_wkv_check(shape) -> tuple:
+    """The WKV kernel at the whole of long_500k's shape against the plain
+    recurrence (``wkv_ref``): the first ``GRID_WKV_HEAD`` outputs exactly
+    as ``wkv_kernel_phase`` holds them, and the last outputs and the final
+    state against the plain recurrence over the last ``GRID_WKV_TAIL``
+    steps from a zero state.  The decays are ``_wkv_inputs``'s "path"
+    draws, at most exp(-exp(-8)), so what the steps before that window
+    leave in the state is scaled by at most exp(-exp(-8))^(TAIL - HEAD)
+    = 2.8e-7 by its end: below the outputs' bf16 tolerance.
+    Returns (largest output error, the plain version's ms over the
+    tail)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
+    r, k, v, w, u = _wkv_inputs(6, shape, torch.bfloat16, "path", card=True)
+    out, s_last = wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    T, H0 = shape[2], GRID_WKV_HEAD
+    out_h, _ = wkv_ref(*(x[:, :, :H0] for x in (r, k, v, w)), u)
+    e = check_close(f"wkv {shape} first {H0} steps", out[:, :, :H0], out_h,
+                    1e-2, 1e-2)
+    t0 = T - GRID_WKV_TAIL
+    (out_t, s_t), ms = _event_ms(lambda: wkv_ref(
+        *(x[:, :, t0:] for x in (r, k, v, w)), u))
+    e = max(e, check_close(f"wkv {shape} last {H0} steps",
+                           out[:, :, T - H0:], out_t[:, :, -H0:], 1e-2,
+                           1e-2))
+    e_s = check_close(f"wkv {shape} S_last", s_last, s_t, 2e-4,
+                      2e-4 * max(1.0, float(s_t.abs().max())))
+    log(f"[kernels] wkv {shape} bf16 (long_500k): max abs err out {e:.3e} "
+        f"(rtol 1e-2, atol 1e-2) over the first and last {H0} steps, "
+        f"S_last {e_s:.3e}; the plain recurrence over the last "
+        f"{GRID_WKV_TAIL} steps {ms:.1f} ms")
+    del r, k, v, w, u, out, s_last, out_h, out_t, s_t
+    torch.cuda.empty_cache()
+    return e, ms
+
+
+def grid_kernel_checks(fa_train, fa_pre, rg_pre) -> dict:
+    """Each kernel of the grid's cells against its plain version at the
+    cell's shape: attention forward and backward at train_4k's, the
+    windowed attention forward at prefill_32k's, the RG-LRU scan there."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
+    errs = {}
+    errs["fa_train"] = fa_case(f"train_4k {fa_train}", fa_train,
+                               torch.bfloat16, True, 0, chunk=1024,
+                               card=True)
+    q, k, v, _ = _fa_inputs(7, fa_pre, torch.bfloat16, card=True)
+    kw = dict(causal=True, window=RG_WINDOW, q_chunk=1024, kv_chunk=1024)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    out_r, lse_r = flash_attention_fwd_ref(q, k, v, **kw)
+    (fr, fa), _ = FA_TOL["bfloat16"]
+    errs["fa_pre"] = max(
+        check_close(f"prefill_32k {fa_pre} out", out, out_r, fr, fa),
+        check_close(f"prefill_32k {fa_pre} lse", lse, lse_r, 1e-5, 1e-5))
+    log(f"[kernels] flash_attention prefill_32k {fa_pre} bf16 window="
+        f"{RG_WINDOW}: max abs err fwd {errs['fa_pre']:.3e} (rtol {fr}, "
+        f"atol {fa})")
+    del q, k, v, out, lse, out_r, lse_r
+    a, b = _scan_inputs(8, rg_pre, torch.float32, card=True)
+    h, h_last = rglru_scan(a, b)
+    h_r, h_last_r = rglru_ref(a, b)
+    scale = max(1.0, float(h_r.abs().max()))
+    errs["rg_pre"] = check_close(f"rglru prefill_32k {rg_pre}", h, h_r,
+                                 2e-5, 2e-5 * scale)
+    check_close(f"rglru prefill_32k {rg_pre} h_last", h_last, h_last_r,
+                1e-5, 1e-5 * scale)
+    log(f"[kernels] rglru_scan prefill_32k {rg_pre} f32: max abs err "
+        f"{errs['rg_pre']:.3e} (rtol 2e-5, atol 2e-5·{scale:.4g})")
+    del a, b, h, h_last, h_r, h_last_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def grid_phase(smi: str) -> dict:
+    """[grid]: one cell of each shape (``GRID``) through the step builders
+    of ``repro_torch.launch.steps``, each line with its median step time,
+    peak memory, ``mfu`` and the roofline's bottleneck; then each kernel
+    of the cells against its plain version at the cell's shape and its
+    times there.  Launch counts are zeroed just before each cell and read
+    just after it."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.base import SHAPES, get_config
+    t_phase = time.perf_counter()
+    runs = {"train_4k": grid_train, "prefill_32k": grid_prefill,
+            "decode_32k": grid_decode, "long_500k": grid_long}
+    out = {}
+    for arch, name, batch in GRID:
+        cfg = get_config(arch)
+        shape = dc.replace(SHAPES[name], global_batch=batch)
+        t0 = time.perf_counter()
+        out[name] = runs[name](cfg, shape, smi)
+        log(f"[grid] {name} passed in {time.perf_counter() - t0:.1f} s")
+    tr = get_config("stablelm-1.6b")
+    rg = get_config("recurrentgemma-2b")
+    rw = get_config("rwkv6-1.6b")
+    b_tr, b_pre = GRID[0][2], GRID[1][2]
+    fa_train = (b_tr, SHAPES["train_4k"].seq_len, tr.n_kv_heads,
+                tr.n_heads // tr.n_kv_heads, tr.head_dim)
+    fa_pre = (b_pre, SHAPES["prefill_32k"].seq_len, rg.n_kv_heads,
+              rg.n_heads // rg.n_kv_heads, rg.head_dim)
+    rg_pre = (b_pre, SHAPES["prefill_32k"].seq_len, rg.d_rnn or rg.d_model)
+    wkv_long = (1, rw.d_model // rw.rwkv_head_dim,
+                SHAPES["long_500k"].seq_len, rw.rwkv_head_dim,
+                rw.rwkv_head_dim)
+    counts = read_counts()
+    errs = grid_kernel_checks(fa_train, fa_pre, rg_pre)
+    errs["wkv_long"], wkv_tail_ms = grid_wkv_check(wkv_long)
+    set_counts(counts)                   # these launches are not a path's
+    out["times"] = {
+        "fa_train": flash_times(torch.bfloat16, fa_train, reps=0.5,
+                                card=True),
+        "fa_pre": flash_times(torch.bfloat16, fa_pre, RG_WINDOW,
+                              backward=False, reps=0.1, card=True),
+        "rg_pre": rglru_times(rg_pre, reps=10, plain_reps=1, card=True),
+        "wkv_long": wkv_times(wkv_long, reps=5, plain=wkv_tail_ms,
+                              card=True)}
+    out.update(errs=errs, shapes={"fa_train": fa_train, "fa_pre": fa_pre,
+                                  "rg_pre": rg_pre, "wkv_long": wkv_long},
+               wkv_plain_steps=GRID_WKV_TAIL)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[grid] phase passed in {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+def grid_rows(grid) -> list:
+    """The ``kernels`` line's rows of the grid's cells: each kernel at its
+    cell's shape, its launches in that cell."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    src = "src/repro_torch/kernels"
+    fa_src = f"{src}/flash_attention/csrc/flash_attention.cu"
+    t, e, sh = grid["times"], grid["errs"], grid["shapes"]
+    tr_n = grid["train_4k"]["launches"]
+    pre_n = grid["prefill_32k"]["launches"]
+
+    def fa_row(name, key, which, launches, err, **extra):
+        x = t[key]
+        return {"name": name, "route": "cuda",
+                "kernel_route": kernel_route(torch.bfloat16, sh[key][4],
+                                             which == "bwd"),
+                "shape": list(sh[key]), **extra, "source": fa_src,
+                "replaces": (
+                    "src/repro/kernels/flash_attention/flash_attention.py:88"
+                    if which == "fwd" else
+                    "src/repro/models/attention.py:204"),
+                "launches": launches, "max_abs_err": err,
+                "ms": x[f"{which}_ms"], "plain_ms": x[f"plain_{which}_ms"],
+                "bound_ms": x[f"{which}_bound_ms"],
+                "bound_by": x[f"{which}_bound_by"],
+                "library_ms": x[f"sdpa_{which}_ms"]}
+    rg, wk = t["rg_pre"], t["wkv_long"]
+    return [
+        fa_row("flash_attention_fwd_train_4k", "fa_train", "fwd",
+               tr_n["flash_attention_fwd"], e["fa_train"][0]),
+        fa_row("flash_attention_bwd_train_4k", "fa_train", "bwd",
+               tr_n["flash_attention_bwd"], e["fa_train"][1]),
+        fa_row("flash_attention_fwd_prefill_32k", "fa_pre", "fwd",
+               pre_n["flash_attention_fwd"], e["fa_pre"],
+               window=RG_WINDOW), {
+        "name": "rglru_scan_prefill_32k", "route": "cuda",
+        "shape": list(sh["rg_pre"]),
+        "source": f"{src}/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:54",
+        "launches": pre_n["rglru_scan"], "max_abs_err": e["rg_pre"],
+        "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
+        "library_ms": None}, {
+        "name": "rwkv6_wkv_long_500k", "route": "cuda",
+        "shape": list(sh["wkv_long"]),
+        "source": f"{src}/rwkv6_wkv/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:76",
+        "launches": grid["long_500k"]["launches"]["rwkv6_wkv"],
+        "max_abs_err": e["wkv_long"], "ms": wk["ms"],
+        "plain_ms": wk["plain_ms"],
+        "plain_steps": grid["wkv_plain_steps"],
+        "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+        "library_ms": None}]
+
+
+# --------------------------------------------------------------------- #
+# 17. times
 # --------------------------------------------------------------------- #
 def time_ms(fn, reps=50, cold=True) -> float:
     """Median time of one call of ``fn`` on the card, by CUDA events.
@@ -3488,7 +4160,7 @@ def time_ms(fn, reps=50, cold=True) -> float:
     events time the call on the card and not the host's launch."""
     import torch
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     times = []
     for _ in range(reps):
@@ -3538,13 +4210,15 @@ def coded_reduce_times(n_slots, D, reps=50) -> dict:
 
 
 def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
-                causal=True) -> dict:
+                causal=True, reps=1.0, card=False) -> dict:
     """The kernel's forward (and backward, and forward+backward) at
     ``shape`` beside the plain version, ``scaled_dot_product_attention``
     (timed as a yardstick only) and the bound.  Where a window is shorter
     than the sequence the library's call takes it as a boolean mask (which
     rules out its flash backend), and the bound counts only the pairs the
-    window leaves."""
+    window leaves.  ``reps`` scales every count of timed calls (at least
+    one each), for shapes whose calls take seconds; ``card`` draws the
+    inputs on the card."""
     import torch
     import torch.nn.functional as F
 
@@ -3557,12 +4231,15 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
     masked = bool(window) and window < S
     assert causal or not window
     kw = dict(causal=causal, window=window)
-    q, k, v, do = _fa_inputs(5, shape, dtype)
+    q, k, v, do = _fa_inputs(5, shape, dtype, card)
     counts = read_counts()
     out, lse = flash_attention_fwd(q, k, v, **kw)
-    t = {"fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw), 30),
+    def n(count):
+        return max(1, round(count * reps))
+    t = {"fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                           n(30)),
          "plain_fwd_ms": time_ms(
-             lambda: flash_attention_fwd_ref(q, k, v, **kw), 10)}
+             lambda: flash_attention_fwd_ref(q, k, v, **kw), n(10))}
     # the library's layout, (B, H, S, D), kv heads repeated to H, made
     # once and not timed
     qh, kh, vh, doh = [
@@ -3575,24 +4252,24 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
         lag = pos[:, None] - pos[None, :]
         lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
     t["sdpa_fwd_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, **lib_kw), 30)
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, **lib_kw), n(30))
     if backward:
         t["bwd_ms"] = time_ms(lambda: flash_attention_bwd(
-            q, k, v, out, lse, do), 20)
+            q, k, v, out, lse, do), n(20))
         t["plain_bwd_ms"] = time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, out, lse, do), 5)
+            q, k, v, out, lse, do), n(5))
         leaves = [x.detach().clone().requires_grad_(True)
                   for x in (q, k, v)]
 
         def fwd_bwd():
             o = flash_attention(*leaves, **kw)
             torch.autograd.grad(o, leaves, do)
-        t["fwd_bwd_ms"] = time_ms(fwd_bwd, 20)
+        t["fwd_bwd_ms"] = time_ms(fwd_bwd, n(20))
         lib = [x.detach().clone().requires_grad_(True)
                for x in (qh, kh, vh)]
         lib_out = F.scaled_dot_product_attention(*lib, **lib_kw)
         t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            lib_out, lib, doh, retain_graph=True), 20)
+            lib_out, lib, doh, retain_graph=True), n(20))
     set_counts(counts)                   # these launches are not a path's
 
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -3638,23 +4315,25 @@ def flash_times(dtype, shape=FA_PATH, window=0, backward=True,
     return t
 
 
-def wkv_times() -> dict:
-    """The WKV kernel at the serve path's shape, beside its plain version
-    and the bound, and the SM clock just before it is timed (the kernel is
-    bound by issue and latency, so its time moves with the clock).  No
-    single PyTorch call computes the recurrence, so there is no library
-    time."""
+def wkv_times(shape=WKV_PATH, reps=30, plain=None, card=False) -> dict:
+    """The WKV kernel at ``shape`` (the serve path's), beside its plain
+    version and the bound, and the SM clock just before it is timed (the
+    kernel is bound by issue and latency, so its time moves with the
+    clock).  ``plain``, where given, is the plain version's time measured
+    by the caller on these inputs.  No single PyTorch call computes the
+    recurrence, so there is no library time."""
     import torch
 
     from repro_torch.kernels.recurrence_ab import sm_clock_mhz
     from repro_torch.kernels.rwkv6_wkv import wkv, wkv_ref
-    B, H, S, K, V = WKV_PATH
-    r, k, v, w, u = _wkv_inputs(4, WKV_PATH, torch.bfloat16, "path")
+    B, H, S, K, V = shape
+    r, k, v, w, u = _wkv_inputs(4, shape, torch.bfloat16, "path", card)
     counts = read_counts()
     clock = sm_clock_mhz()
-    t = {"ms": time_ms(lambda: wkv(r, k, v, w, u), 30),
-         "warm_ms": time_ms(lambda: wkv(r, k, v, w, u), 30, cold=False),
-         "plain_ms": time_ms(lambda: wkv_ref(r, k, v, w, u), 3)}
+    t = {"ms": time_ms(lambda: wkv(r, k, v, w, u), reps),
+         "warm_ms": time_ms(lambda: wkv(r, k, v, w, u), reps, cold=False),
+         "plain_ms": plain if plain is not None else time_ms(
+             lambda: wkv_ref(r, k, v, w, u), 3)}
     set_counts(counts)                   # these launches are not a path's
     elt = r.element_size()
     # each input read once, each output written once
@@ -3668,7 +4347,7 @@ def wkv_times() -> dict:
     t.update(bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              bytes=n_bytes, flops=flops, sm_clock_mhz=clock)
-    log(f"[times] wkv {WKV_PATH} bf16 r/k/v/u, f32 w: kernel "
+    log(f"[times] wkv {shape} bf16 r/k/v/u, f32 w: kernel "
         f"{t['ms']:.5f} ms (inputs in L2: {t['warm_ms']:.5f}), plain "
         f"{t['plain_ms']:.3f} ms, library none; bound {t['bound_ms']:.5f} ms "
         f"by {t['bound_by']} ({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 "
@@ -3682,23 +4361,24 @@ def wkv_times() -> dict:
     return t
 
 
-def rglru_times() -> dict:
-    """The RG-LRU scan kernel at the recurrentgemma path's shape, float32
-    a and b as the model gives them, beside its plain version, the bound
-    and ``torch.add(a, b, out=...)``, which moves the same bytes in the
-    same layout: what the card streams in practice.  No single PyTorch
-    call computes the recurrence, so there is no library time."""
+def rglru_times(shape=RG_SCAN_PATH, reps=30, plain_reps=3,
+                card=False) -> dict:
+    """The RG-LRU scan kernel at ``shape`` (the recurrentgemma path's),
+    float32 a and b as the model gives them, beside its plain version, the
+    bound and ``torch.add(a, b, out=...)``, which moves the same bytes in
+    the same layout: what the card streams in practice.  No single
+    PyTorch call computes the recurrence, so there is no library time."""
     import torch
 
     from repro_torch.kernels.rglru_scan import rglru_ref, rglru_scan
-    B, S, D = RG_SCAN_PATH
-    a, b = _scan_inputs(4, RG_SCAN_PATH, torch.float32)
+    B, S, D = shape
+    a, b = _scan_inputs(4, shape, torch.float32, card=card)
     counts = read_counts()
     o = torch.empty_like(a)
-    t = {"ms": time_ms(lambda: rglru_scan(a, b), 30),
-         "warm_ms": time_ms(lambda: rglru_scan(a, b), 30, cold=False),
-         "plain_ms": time_ms(lambda: rglru_ref(a, b), 3),
-         "stream_ms": time_ms(lambda: torch.add(a, b, out=o), 30)}
+    t = {"ms": time_ms(lambda: rglru_scan(a, b), reps),
+         "warm_ms": time_ms(lambda: rglru_scan(a, b), reps, cold=False),
+         "plain_ms": time_ms(lambda: rglru_ref(a, b), plain_reps),
+         "stream_ms": time_ms(lambda: torch.add(a, b, out=o), reps)}
     set_counts(counts)                   # these launches are not a path's
     # a and b read once, out and h_last written once; a multiply and an
     # add per element
@@ -3709,7 +4389,7 @@ def rglru_times() -> dict:
     t.update(bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              bytes=n_bytes, flops=flops)
-    log(f"[times] rglru_scan {RG_SCAN_PATH} f32: kernel {t['ms']:.5f} ms "
+    log(f"[times] rglru_scan {shape} f32: kernel {t['ms']:.5f} ms "
         f"(inputs in L2: {t['warm_ms']:.5f}), plain {t['plain_ms']:.3f} ms, "
         f"library none; bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
         f"({n_bytes} bytes -> {t_bytes:.5f} ms at 3.35 TB/s; "
@@ -4346,9 +5026,11 @@ def main() -> int:
     device_engine_phase(smi, fleet)
     del fleet
     soak_phase(smi)
+    grid = grid_phase(smi)
     kernels = times_phase(mlp, lm, served, rg_out, errs, fa_errs, wkv_err,
                           rg_errs, fel, lmt, fam, bwd_errs)
     kernels += zoo_times(moe_out, zoo_out, zoo_fa_errs)
+    kernels += grid_rows(grid)
     import torch
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(smi)

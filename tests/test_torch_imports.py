@@ -1,6 +1,7 @@
 """Import hygiene of the port: importing every module of ``repro_torch``,
 and ``chip_smoke.py``, loads neither ``jax`` nor the JAX package
-``repro``."""
+``repro``, and ``repro_torch.launch``'s names of submodules stay
+modules."""
 import json
 import os
 import subprocess
@@ -20,7 +21,10 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"imported": names, "bad": bad}))
+launch = sys.modules["repro_torch.launch"]
+kinds = {n: type(getattr(launch, n)).__name__
+         for n in ("serve", "train", "steps", "cells")}
+print(json.dumps({"imported": names, "bad": bad, "launch": kinds}))
 """
 
 
@@ -33,6 +37,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
+    # the launch package binds no function to a submodule's name
+    assert got["launch"] == dict.fromkeys(("serve", "train", "steps",
+                                           "cells"), "module")
     for mod in ("repro_torch.kernels.coded_reduce.ops",
                 "repro_torch.core.lyapunov.scheduler",
                 "repro_torch.sim.cluster", "repro_torch.train.coded_trainer",
@@ -74,5 +81,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.gemma3_12b",
                 "repro_torch.configs.internvl2_26b",
                 "repro_torch.configs.hubert_xlarge",
-                "repro_torch.kernels.backward_ab"):
+                "repro_torch.kernels.backward_ab",
+                "repro_torch.compress", "repro_torch.compress.quantize",
+                "repro_torch.launch.steps", "repro_torch.launch.cells",
+                "repro_torch.analysis", "repro_torch.analysis.roofline"):
         assert mod in got["imported"]

@@ -1,11 +1,13 @@
 """The port's counter-based draws (``repro_torch.sim.threefry``) bit for
 bit against ``jax.random``: ``PRNGKey``, ``fold_in``, the uniform bits
 and their float32 map, at the extreme counters and at every soak shape;
-and a chunk drawn at once equals the same slots drawn one by one."""
+``split`` (and keys split again, and folded); the device draws; and a
+chunk drawn at once equals the same slots drawn one by one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.sim import threefry
 
@@ -45,6 +47,65 @@ def test_uniform_bits_and_floats(seed):
             assert got.dtype == np.float32
             assert np.array_equal(got.view(np.uint32),
                                   want.view(np.uint32)), (k, shape)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 5, 64])
+def test_split_equals_jax_split(seed, n):
+    key = jax.random.PRNGKey(seed)
+    port_key = threefry.prng_key(seed)
+    for k in (0, 2 ** 32 - 1):                # a fresh key and a folded one
+        sub, port_sub = jax.random.fold_in(key, k), threefry.fold_in(
+            port_key, k)
+        got = threefry.split(port_sub, n)
+        want = np.asarray(jax.random.split(sub, n))
+        assert got.dtype == np.uint32 and got.shape == (n, 2)
+        assert np.array_equal(got, want)
+        # a split key splits and draws alike
+        assert np.array_equal(threefry.split(got[-1], 3),
+                              np.asarray(jax.random.split(want[-1], 3)))
+        assert np.array_equal(
+            threefry.uniform_bits(got[0], (4, 5)),
+            np.asarray(jax.random.bits(jnp.asarray(want[0]), (4, 5),
+                                       jnp.uint32)))
+
+
+def test_split_takes_a_shape_and_defaults_to_two():
+    key = jax.random.PRNGKey(3)
+    assert np.array_equal(threefry.split(threefry.prng_key(3)),
+                          np.asarray(jax.random.split(key)))
+    assert np.array_equal(threefry.split(threefry.prng_key(3), (2, 3)),
+                          np.asarray(jax.random.split(key, (2, 3))))
+
+
+@pytest.mark.parametrize("seed", [0, -1])
+@pytest.mark.parametrize("route", ["uniform_device", "uniform_tensors"])
+def test_device_uniforms_equal_the_host_bits(seed, route):
+    """Both routes (the host's numpy words on the CPU; int64 tensors, the
+    card's route, run here on CPU tensors)."""
+    key = threefry.fold_in(threefry.prng_key(seed), 2 ** 31 - 1)
+    host = threefry.bits_to_unit_float32(threefry.uniform_bits(key, (3000,)))
+    for start, count in ((0, 3000), (1000, 1), (2047, 953)):
+        got = getattr(threefry, route)(key, start, count, "cpu")
+        assert got.dtype == torch.float32 and got.shape == (count,)
+        assert np.array_equal(got.numpy().view(np.uint32),
+                              host[start:start + count].view(np.uint32))
+
+
+def test_tensor_route_past_two_to_the_32():
+    """Counters past 2^32 carry a high word: the tensor route against the
+    numpy cipher there."""
+    key = threefry.prng_key(5)
+    start = 2 ** 32 - 7
+    got = threefry.uniform_tensors(key, start, 20, "cpu")
+    want = threefry.uniform_device(key, start, 20, "cpu")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    i = np.arange(start, start + 20, dtype=np.uint64)
+    y0, y1 = threefry.threefry2x32(
+        key, (i >> np.uint64(32)).astype(np.uint32),
+        (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    assert np.array_equal(threefry.bits_to_unit_float32(y0 ^ y1),
+                          got.numpy())
 
 
 def test_bits_to_float_extremes():

@@ -209,8 +209,10 @@ def test_synthetic_batch_is_the_reference_s(arch, kind, dtype):
 def test_train_refuses_moe_and_frontend_configs():
     """``train()`` refuses the frontend configs, as the reference's driver
     does; the MoE configs, which it refused until MoE training was ported,
-    now train (one plain step here; ``tests/test_torch_moe_train.py`` and
-    ``test_torch_llama4_train.py`` hold them against the reference)."""
+    now train (one plain step here;
+    ``tests/test_torch_moe.py::test_granite_moe_training_matches_reference``
+    and ``test_llama4_moe_training_matches_reference`` below hold them
+    against the reference)."""
     for arch in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
         cfg = port_configs.get_config(arch, reduced=True)
         out = port_train.train(cfg, steps=1, batch=1, seq=16, device="cpu",
